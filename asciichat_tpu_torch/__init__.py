@@ -1,0 +1,20 @@
+"""asciichat_tpu_torch — the render path of asciichat_tpu in PyTorch, with
+hand-written CUDA kernels for an NVIDIA H100 (``sm_90a``).
+
+The JAX package ``asciichat_tpu`` stays beside it as the reference. This
+package imports ``torch`` and never ``jax``; the host code that never imports
+JAX (the oracle, the native emitter, palettes, geometry, frame sources, the
+session display) is shared by import from ``asciichat_tpu``.
+
+- ``ops/``: plain PyTorch versions of the per-pixel math and the kernels'
+  wrappers: K1 resize (``ops/resize.py``), K2 cell records (``ops/cells.py``).
+- ``models/server.py``: the server's per-tick render, K3.
+- ``render/pipeline.py``: mirror convert, frames -> byte-exact ANSI.
+- ``csrc/``: the CUDA sources, built with nvcc at first use
+  (``runtime/kernel_build.py``).
+
+A tensor on the CPU takes each kernel's plain version; a tensor on a CUDA
+device launches the kernel or raises.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,165 @@
+"""Mirror mode: local capture -> ASCII -> terminal, no network.
+
+Counterpart of ``asciichat_tpu/models/mirror.py`` on the port's renderer.
+Capture runs on a thread feeding a drop-on-full queue; the main loop converts
+on the renderer's device and writes frames. ``--snapshot`` renders one frame
+and exits (session/render.c:128-143). Display and pacing are the shared
+session framework (``asciichat_tpu.models.session``).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from asciichat_tpu.models.session import DisplaySink, Pacer
+from asciichat_tpu.render.types import TerminalCapabilities
+from asciichat_tpu.runtime.double_buffer import FrameQueue
+from asciichat_tpu.runtime.framesource import FrameSource
+from asciichat_tpu.utils.errors import AsciiChatError, ErrorCode
+from asciichat_tpu.utils import ui
+from asciichat_tpu.utils.keyboard import KeyboardReader
+from asciichat_tpu_torch.ops import filters
+from asciichat_tpu_torch.render.pipeline import AsciiRenderer
+
+MATRIX_NOT_PORTED = ("--matrix needs the digital-rain overlay (ops/rain.py), which "
+                     "is not ported yet: ROADMAP.md Queue 1, item 9")
+
+
+class FrameTransform:
+    """Capture-side frame chain: flips, then the color filter (the port's
+    ``filters.apply_color_filter_reference``). Fields are live-mutable."""
+
+    def __init__(self, flip_x: bool = False, flip_y: bool = False,
+                 color_filter: str = "none"):
+        self.flip_x = flip_x
+        self.flip_y = flip_y
+        self.color_filter = color_filter
+
+    def __call__(self, frame: np.ndarray) -> np.ndarray:
+        frame = np.asarray(frame)
+        if self.flip_x:
+            frame = frame[:, ::-1]
+        if self.flip_y:
+            frame = frame[::-1]
+        if self.color_filter != "none":
+            frame = filters.apply_color_filter_reference(
+                frame, self.color_filter, time.monotonic())
+        return frame
+
+
+class MirrorSession:
+    def __init__(
+        self,
+        source: FrameSource,
+        caps: TerminalCapabilities,
+        width: int,
+        height: int,
+        palette: str,
+        fps_limit: float = 60.0,
+        color_filter: str = "none",
+        flip_x: bool = False,
+        flip_y: bool = False,
+        stretch: bool = False,
+        show_fps: bool = False,
+        matrix: bool = False,
+        device: torch.device | str | None = None,
+    ):
+        if matrix:
+            raise NotImplementedError(MATRIX_NOT_PORTED)
+        self.source = source
+        self.caps = caps
+        self.width = width
+        self.height = height
+        self.renderer = AsciiRenderer(palette, device)
+        self.transform = FrameTransform(flip_x=flip_x, flip_y=flip_y,
+                                        color_filter=color_filter)
+        self.stretch = stretch
+        self.display = DisplaySink(show_fps=show_fps)
+        self.display.set_meta(caps.renderer_key(), (width, height))
+        self.pacer = Pacer(fps_limit)
+        self.queue = FrameQueue(maxsize=2)
+        self._stop = threading.Event()
+        self._filter_cycle = ["none", "green", "cyan", "orange", "rainbow"]
+
+    def _on_key(self, key: str) -> None:
+        """Live keybindings; 'm' (digital rain) waits for the rain port."""
+        if key in ("q", "\x03"):
+            self._stop.set()
+        elif key == "f":
+            self.transform.flip_x = not self.transform.flip_x
+        elif key == "c":
+            cyc = self._filter_cycle
+            cur = self.transform.color_filter
+            i = cyc.index(cur) + 1 if cur in cyc else 0
+            self.transform.color_filter = cyc[i % len(cyc)]
+        elif key == "?":
+            self.display.show_help = not self.display.show_help
+
+    def _capture_thread(self) -> None:
+        interval = 1.0 / getattr(self.source, "fps", 30.0)
+        while not self._stop.is_set():
+            t0 = time.monotonic()
+            frame = self.source.read()
+            if frame is None:
+                self.queue.push(None)
+                return
+            self.queue.push(frame)
+            dt = time.monotonic() - t0
+            if dt < interval:
+                time.sleep(interval - dt)
+
+    def _convert(self, frame) -> bytes:
+        return self.renderer.convert(
+            self.transform(frame), self.width, self.height, self.caps,
+            stretch=self.stretch,
+        )
+
+    def run_snapshot(self) -> bytes:
+        frame = self.source.read()
+        if frame is None:
+            raise AsciiChatError(ErrorCode.MEDIA,
+                                 "no frame available from the media source")
+        out = self._convert(frame)
+        self.display.writer.write_frame(out)
+        return out
+
+    def run(self, max_frames: int | None = None) -> int:
+        cap = threading.Thread(target=self._capture_thread, daemon=True)
+        cap.start()
+        keyboard = KeyboardReader(self._on_key)
+        keyboard.start()
+        self.display.setup()
+        if self.display.writer.is_tty:
+            # animated banner reveal before the stream (lib/ui/splash.c)
+            for frame in ui.splash_frames(self.width):
+                self.display.writer.write_frame(frame)
+                time.sleep(0.04)
+            self.display.reset()
+        rendered = 0
+        try:
+            while not self._stop.is_set():
+                try:
+                    frame = self.queue.pop(timeout=1.0)
+                except queue.Empty:
+                    continue
+                if frame is None:
+                    break
+                if self.pacer.should_drop(time.monotonic()):
+                    continue  # drop: stay at the fps cap
+                self.display.write_frame(self._convert(frame))
+                rendered += 1
+                if max_frames and rendered >= max_frames:
+                    break
+        except KeyboardInterrupt:
+            pass
+        finally:
+            self._stop.set()
+            keyboard.stop()
+            self.display.teardown()
+            self.source.close()
+        return rendered

@@ -1,0 +1,187 @@
+"""The port's mirror convert (render/pipeline.py, models/mirror.py,
+apps/main.py) against the JAX package's AsciiRenderer and the oracle: ANSI
+bytes must be identical, for every mode, two UTF-8 palettes, and the
+stretch and padding cases of test_golden_render.py."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from asciichat_tpu.render import emitter, oracle
+from asciichat_tpu.render import palette as pal
+from asciichat_tpu.render.pipeline import AsciiRenderer as JaxRenderer
+from asciichat_tpu.render.types import ColorLevel, RenderMode, TerminalCapabilities
+from asciichat_tpu_torch.apps import main as tmain
+from asciichat_tpu_torch.models.mirror import MATRIX_NOT_PORTED, MirrorSession
+from asciichat_tpu_torch.ops import cells as tcells
+from asciichat_tpu_torch.ops import filters as tfilt
+from asciichat_tpu_torch.render.pipeline import AsciiRenderer
+
+from conftest import synthetic_frame
+
+REPO = Path(__file__).resolve().parent.parent
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+ORACLE_FNS = {
+    "mono": lambda rgb, p: oracle.render_mono(rgb, p),
+    "truecolor_fg": lambda rgb, p: oracle.render_truecolor_fg(rgb, p),
+    "256color": lambda rgb, p: oracle.render_256color(rgb, p),
+    "16color": lambda rgb, p: oracle.render_16color(rgb, p),
+    "16color_dithered": lambda rgb, p: oracle.render_16color_dithered(rgb, p),
+    "16color_dithered_bg": lambda rgb, p: oracle.render_16color_dithered_bg(rgb, True, p),
+    "halfblock_truecolor": lambda rgb, p: oracle.render_halfblock_truecolor(rgb),
+    "halfblock_256": lambda rgb, p: oracle.render_halfblock_256(rgb, p),
+    "halfblock_16": lambda rgb, p: oracle.render_halfblock_16(rgb, p),
+    "halfblock_mono": lambda rgb, p: oracle.render_halfblock_mono(rgb, p),
+}
+
+
+def _native_size(frames: np.ndarray, mode: str, palette: str) -> list[bytes]:
+    """The port's records at the frames' own size, through the shared emitter."""
+    recs = tcells.render_cells(torch.from_numpy(frames), tcells.ramp_for_palette(palette),
+                               dst_h=frames.shape[1], dst_w=frames.shape[2], mode=mode)
+    return emitter.emit_frames(tcells.records_to_numpy(recs), mode, palette)
+
+
+@pytest.mark.parametrize("mode", tcells.MODES)
+def test_mode_matches_oracle(mode):
+    frames = np.random.default_rng(42).integers(0, 256, (2, 7, 19, 3), dtype=np.uint8)
+    frames[1, :, :9] = 0  # black runs (REP and transparent paths)
+    got = _native_size(frames, mode, pal.DEFAULT_PALETTE)
+    for i in range(2):
+        assert got[i] == ORACLE_FNS[mode](frames[i], pal.DEFAULT_PALETTE), i
+
+
+@pytest.mark.parametrize("palette_name", ["blocks", "cool"])
+@pytest.mark.parametrize("mode", ["mono", "truecolor_fg", "256color", "16color"])
+def test_utf8_palettes(mode, palette_name):
+    palette = pal.BUILTIN_PALETTES[palette_name]
+    frame = synthetic_frame(10, 24, seed=9)[None]
+    assert _native_size(frame, mode, palette)[0] == ORACLE_FNS[mode](frame[0], palette)
+
+
+CAPS = [
+    TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.FOREGROUND),
+    TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.BACKGROUND),
+    TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.HALF_BLOCK),
+    TerminalCapabilities(ColorLevel.COLOR_256, RenderMode.FOREGROUND),
+    TerminalCapabilities(ColorLevel.COLOR_256, RenderMode.HALF_BLOCK),
+    TerminalCapabilities(ColorLevel.COLOR_16, RenderMode.FOREGROUND),
+    TerminalCapabilities(ColorLevel.COLOR_16, RenderMode.HALF_BLOCK),
+    TerminalCapabilities(ColorLevel.NONE, RenderMode.FOREGROUND),
+    TerminalCapabilities(ColorLevel.NONE, RenderMode.HALF_BLOCK),
+]
+
+
+@pytest.mark.parametrize("caps", CAPS, ids=lambda c: c.renderer_key())
+def test_convert_batch_matches_jax_and_oracle(caps):
+    frames = np.stack([synthetic_frame(48, 64, seed=s) for s in (11, 12)])
+    got = AsciiRenderer(device=CPU).convert_batch(frames, 46, 14, caps)
+    assert got == JaxRenderer().convert_batch(frames, 46, 14, caps)
+    for i in range(2):
+        assert got[i] == oracle.ascii_convert_with_capabilities(frames[i], 46, 14, caps)
+
+
+@pytest.mark.parametrize("palette_name", ["blocks", "cool"])
+def test_convert_utf8_palette_matches_jax(palette_name):
+    palette = pal.BUILTIN_PALETTES[palette_name]
+    frame = synthetic_frame(30, 40, seed=3)
+    caps = TerminalCapabilities(ColorLevel.COLOR_16, RenderMode.FOREGROUND)
+    got = AsciiRenderer(palette, device=CPU).convert(frame, 33, 11, caps)
+    assert got == JaxRenderer(palette).convert(frame, 33, 11, caps)
+
+
+def test_stretch_and_no_padding():
+    frame = synthetic_frame(30, 40, seed=2)
+    renderer = AsciiRenderer(device=CPU)
+    caps = TerminalCapabilities(wants_padding=False)
+    assert (renderer.convert(frame, 50, 20, caps)
+            == oracle.ascii_convert_with_capabilities(frame, 50, 20, caps))
+    caps2 = TerminalCapabilities()
+    assert (renderer.convert(frame, 50, 20, caps2, stretch=True)
+            == oracle.ascii_convert_with_capabilities(frame, 50, 20, caps2, stretch=True))
+
+
+def test_batch_consistency_and_tensor_input():
+    frames = np.stack([synthetic_frame(24, 32, seed=s) for s in range(4)])
+    renderer = AsciiRenderer(device=CPU)
+    caps = TerminalCapabilities()
+    batched = renderer.convert_batch(frames, 40, 12, caps)
+    assert batched == [renderer.convert(f, 40, 12, caps) for f in frames]
+    assert renderer.convert_batch(torch.from_numpy(frames), 40, 12, caps) == batched
+
+
+def test_convert_batch_rejects_unbatched_frame():
+    with pytest.raises(ValueError, match=r"\[B,H,W,3\]"):
+        AsciiRenderer(device=CPU).convert_batch(synthetic_frame(24, 32), 40, 12,
+                                                TerminalCapabilities())
+
+
+class _StillSource:
+    fps = 30.0
+
+    def __init__(self, frame):
+        self.frame = frame
+
+    def read(self):
+        return self.frame
+
+    def close(self):
+        pass
+
+
+@pytest.mark.parametrize("color_filter", ["none", "green", "black"])
+def test_mirror_snapshot_matches_oracle(color_filter, capfdbinary):
+    frame = synthetic_frame(60, 80, seed=6)
+    caps = TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.HALF_BLOCK)
+    session = MirrorSession(_StillSource(frame), caps, 40, 12, pal.DEFAULT_PALETTE,
+                            color_filter=color_filter, flip_x=True, device=CPU)
+    out = session.run_snapshot()
+    want_frame = tfilt.apply_color_filter_reference(frame[:, ::-1], color_filter)
+    assert out == oracle.ascii_convert_with_capabilities(want_frame, 40, 12, caps)
+
+
+def test_mirror_matrix_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MirrorSession(_StillSource(None), TerminalCapabilities(), 40, 12,
+                      pal.DEFAULT_PALETTE, matrix=True, device=CPU)
+    assert "Queue 1" in MATRIX_NOT_PORTED
+
+
+@pytest.mark.parametrize("argv", [
+    ["server"], ["client", "127.0.0.1"], ["discovery-service"], ["bench"],
+    ["mirror", "--test-pattern", "--matrix", "--snapshot"],
+    ["mirror", "--test-pattern", "--render-file", "out.y4m"],
+])
+def test_unported_modes_exit_nonzero(argv, capsys):
+    assert tmain.main(argv) == tmain.NOT_PORTED
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_mirror_cli_snapshot_without_jax():
+    """The port's CLI renders a snapshot with JAX unimportable."""
+    code = ("import runpy, sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None; "
+            "sys.argv = ['main', 'mirror', '--test-pattern', '--snapshot', '--width', "
+            "'40', '--height', '10', '--color-mode', 'NONE', '--stretch']; "
+            "runpy.run_module('asciichat_tpu_torch.apps.main', run_name='__main__')")
+    env = dict(os.environ, ASCIICHAT_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, timeout=180)
+    assert out.returncode == 0, out.stderr.decode()[-2000:]
+    lines = out.stdout.decode().rstrip("\n").split("\n")
+    assert len(lines) == 10
+    assert all(len(line) == 40 for line in lines)
