@@ -1,15 +1,20 @@
-"""asciichat_tpu_torch — the render path of asciichat_tpu in PyTorch, with
-hand-written CUDA kernels for an NVIDIA H100 (``sm_90a``).
+"""asciichat_tpu_torch — the render path, the audio mixer and the live
+server of asciichat_tpu in PyTorch, with hand-written CUDA kernels for an
+NVIDIA H100 (``sm_90a``).
 
 The JAX package ``asciichat_tpu`` stays beside it as the reference. This
 package imports ``torch`` and never ``jax``; the host code that never imports
 JAX (the oracle, the native emitter, palettes, geometry, frame sources, the
-session display) is shared by import from ``asciichat_tpu``.
+session display, the ACIP packet and transport layers) is shared by import
+from ``asciichat_tpu``.
 
 - ``ops/``: plain PyTorch versions of the per-pixel math and the kernels'
-  wrappers: K1 resize (``ops/resize.py``), K2 cell records (``ops/cells.py``).
-- ``models/server.py``: the server's per-tick render, K3.
+  wrappers: K1 resize (``ops/resize.py``), K2 cell records (``ops/cells.py``),
+  K4 the exclude-self audio mixer (``ops/audio.py``).
+- ``models/server.py``: the server tick, K3 (render) and K4 (mix).
 - ``render/pipeline.py``: mirror convert, frames -> byte-exact ANSI.
+- ``apps/``: the command line (``mirror``, ``server``) and the asyncio
+  server (``apps/server.py``).
 - ``csrc/``: the CUDA sources, built with nvcc at first use
   (``runtime/kernel_build.py``).
 

@@ -1,13 +1,16 @@
-"""Command line of the port: the JAX package's parser, the port's mirror.
+"""Command line of the port: the JAX package's parser, the port's mirror and
+server.
 
     python -m asciichat_tpu_torch.apps.main mirror --test-pattern --snapshot
+    python -m asciichat_tpu_torch.apps.main server --port 27224
 
 The parser is ``asciichat_tpu.apps.main.build_parser()`` (JAX-free at module
-level), so flags, help and defaults are the reference CLI's. Only ``mirror``
-is ported; every other mode, and mirror's ``--render-file`` and ``--config``,
-exit non-zero with "not yet ported" and never run the JAX implementation.
-The renderer's device is ``ASCIICHAT_TORCH_DEVICE`` (``cuda`` by default,
-``cpu`` for the plain PyTorch versions).
+level), so flags, help and defaults are the reference CLI's. ``mirror`` and
+``server`` are ported; every other mode (client, discovery, ...), mirror's
+``--render-file`` and ``--matrix``, and ``--config`` exit non-zero with "not
+yet ported" and never run the JAX implementation. The device is
+``ASCIICHAT_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` for the plain
+PyTorch versions).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from asciichat_tpu.utils import logsys
 from asciichat_tpu.utils.errors import AsciiChatError
 
 NOT_PORTED = 2  # exit code of a mode or option the port does not have yet
+PORTED_MODES = ("mirror", "server")
 
 
 def _not_ported(what: str) -> int:
@@ -57,7 +61,7 @@ def cmd_mirror(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode != "mirror":
+    if args.mode not in PORTED_MODES:
         return _not_ported(f"mode {args.mode!r}")
     if getattr(args, "config", None):
         return _not_ported("--config")
@@ -68,6 +72,10 @@ def main(argv=None) -> int:
         json_output=getattr(args, "log_json", False),
     )
     try:
+        if args.mode == "server":
+            from asciichat_tpu_torch.apps import server
+
+            return server.main(args)
         return cmd_mirror(args)
     except AsciiChatError as e:
         print(f"error: {e}", file=sys.stderr)

@@ -1,12 +1,16 @@
-"""The server's per-tick render: composite -> per-receiver filter -> records.
+"""The server tick: N sources in, per-receiver cell records and per-client
+exclude-self audio mixes out.
 
-Counterpart of the video half of ``asciichat_tpu/models/server.py``
-(``plan_tick``, ``render_compute``, single-device ``RenderGroup``). Each tick
-the server hands a :class:`RenderGroup` the source stack; on a CUDA device
-:func:`render_group` launches K3 (``csrc/render_group.cu``), which gathers,
-filters, resizes and writes the records in one pass; on the CPU it runs the
-plain version, :func:`render_compute`. The audio mix and the mesh path are not
-ported yet (ROADMAP.md).
+Counterpart of ``asciichat_tpu/models/server.py`` (``plan_tick``,
+``render_compute``, ``tick_compute``, single-device ``RenderGroup`` and
+``ServerTick``). Each video tick the server hands a :class:`RenderGroup` the
+source stack; on a CUDA device :func:`render_group` launches K3
+(``csrc/render_group.cu``), which gathers, filters, resizes and writes the
+records in one pass; on the CPU it runs the plain version,
+:func:`render_compute`. The audio half is ``ops/audio.mixer_process``: K4
+(``csrc/mixer.cu``) on a CUDA device, the plain loop on the CPU.
+:func:`tick_compute` and :class:`ServerTick` put both halves into one step.
+The mesh path is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from asciichat_tpu.render import palette as pal
 from asciichat_tpu.render.types import RenderMode, TerminalCapabilities
+from asciichat_tpu_torch.ops import audio as audio_ops
 from asciichat_tpu_torch.ops import cells, compositor, filters, pixel
 from asciichat_tpu_torch.render.pipeline import RenderPlan, plan_render
 from asciichat_tpu_torch.runtime.device import check_tensor, default_device, stream_handle
@@ -36,6 +41,7 @@ class ServerTickPlan:
     composite: compositor.CompositePlan
     render: RenderPlan
     num_clients: int
+    audio_samples: int
 
 
 def plan_tick(
@@ -44,6 +50,7 @@ def plan_tick(
     term_h: int,
     caps: TerminalCapabilities,
     num_clients: int | None = None,
+    audio_samples: int = audio_ops.AUDIO_FRAME_SAMPLES,
 ) -> ServerTickPlan:
     comp = compositor.plan_composite(source_sizes, term_w, term_h)
     # the server raises the height cap x2 for half-block clients (stream.c:831);
@@ -51,7 +58,7 @@ def plan_tick(
     req_h = term_h * 2 if caps.render_mode == RenderMode.HALF_BLOCK else term_h
     render = plan_render(comp.width_px, comp.height_px, term_w, req_h, caps)
     n = num_clients if num_clients is not None else len(source_sizes)
-    return ServerTickPlan(comp, render, n)
+    return ServerTickPlan(comp, render, n, audio_samples)
 
 
 def render_compute(
@@ -151,11 +158,26 @@ class RenderGroup:
         palette: str = pal.DEFAULT_PALETTE,
         device: torch.device | str | None = None,
     ):
-        plan = plan_tick(source_sizes, term_w, term_h, caps,
-                         num_clients=len(filter_names))
+        self._setup(plan_tick(source_sizes, term_w, term_h, caps,
+                              num_clients=len(filter_names)),
+                    filter_names, palette, device)
+
+    @classmethod
+    def from_plan(cls, plan: ServerTickPlan, filter_names: list[str],
+                  palette: str = pal.DEFAULT_PALETTE,
+                  device: torch.device | str | None = None) -> "RenderGroup":
+        """The group of a plan that :func:`plan_tick` already made."""
+        grp = cls.__new__(cls)
+        grp._setup(plan, filter_names, palette, device)
+        return grp
+
+    def _setup(self, plan: ServerTickPlan, filter_names: list[str], palette: str,
+               device: torch.device | str | None) -> None:
         self.render = plan.render
         self.palette = palette
         self.device = torch.device(device) if device is not None else default_device()
+        # pinned buffers for the record fetch, reused tick after tick
+        self.staging = cells.HostStaging() if self.device.type == "cuda" else None
         cidx, src_y, src_x, comp_mask = compositor.host_maps(plan.composite)
         self.load_state({"ramp": pal.char_index_ramp_array(palette), "cidx": cidx,
                          "src_y": src_y, "src_x": src_x, "comp_mask": comp_mask})
@@ -214,3 +236,85 @@ class RenderGroup:
             dst_h=self.render.dst_h_px, dst_w=self.render.dst_w)
         self.ticks += 1
         return records
+
+    def fetch(self, records: cells.RecordDict) -> dict[str, np.ndarray]:
+        """The records of :meth:`step` on the host; through the group's
+        pinned buffers on a CUDA device, so consume them before the next
+        fetch."""
+        return cells.records_to_numpy(records, self.staging)
+
+
+def tick_compute(
+    frames: torch.Tensor,  # uint8 [C, H, W, 3] latest frame per client
+    audio: torch.Tensor,  # float32 [C, N]
+    active: torch.Tensor,  # bool [C]
+    mixer_state: tuple,
+    ramp: torch.Tensor,
+    tint: torch.Tensor,
+    fg_on_bg: torch.Tensor,
+    is_rainbow: torch.Tensor,
+    filter_on: torch.Tensor,
+    maps: GroupMaps,
+    *,
+    mode: str,
+    dst_h: int,
+    dst_w: int,
+):
+    """The full tick (asciichat_tpu/models/server.py:94-125): the render of
+    :func:`render_group` and the exclude-self mixes of
+    ``audio_ops.mixer_process``, so K3 + K4 on a CUDA device and the plain
+    ``render_compute`` + ``mixer_process_reference`` on the CPU. The
+    composite maps come as the layout's :class:`GroupMaps`."""
+    records = render_group(frames, ramp, tint, fg_on_bg, is_rainbow, filter_on, maps,
+                           mode=mode, dst_h=dst_h, dst_w=dst_w)
+    mixes, mixer_state = audio_ops.mixer_process(audio, active, mixer_state)
+    return records, mixes, mixer_state
+
+
+class ServerTick:
+    """Stateful wrapper owning the mixer state and the static plan arrays
+    (asciichat_tpu/models/server.py:343-402)."""
+
+    def __init__(
+        self,
+        plan: ServerTickPlan,
+        palette: str = pal.DEFAULT_PALETTE,
+        client_filters: list[str] | None = None,
+        device: torch.device | str | None = None,
+    ):
+        self.plan = plan
+        c = plan.num_clients
+        # `is not None`: an empty list is a valid zero-receiver transient
+        names = client_filters if client_filters is not None else ["none"] * c
+        self.group = RenderGroup.from_plan(plan, names, palette, device)
+        self.device = self.group.device
+        self.mixer_state = audio_ops.MixerState.init(c, c, self.device).astuple()
+
+    @property
+    def consts(self) -> tuple:
+        """The static per-layout arrays, in tick_compute argument order."""
+        g = self.group
+        return (g.ramp, g.tint, g.fg_on_bg, g.is_rainbow, g.filter_on, g.maps)
+
+    def load_state(self, arrays: dict) -> None:
+        """Place host state on the tick's device: the render group's arrays
+        (RenderGroup.load_state) and the mixer state as ``mixer_state``, a
+        tuple of four float32 arrays in MixerState.astuple() order."""
+        arrays = dict(arrays)
+        mixer = arrays.pop("mixer_state", None)
+        if mixer is not None:
+            self.mixer_state = convert.mixer_state(mixer, self.device)
+        self.group.load_state(arrays)
+
+    def step(self, frames: torch.Tensor, audio: torch.Tensor, active: torch.Tensor,
+             time_s: float = 0.0) -> tuple[cells.RecordDict, torch.Tensor]:
+        """frames uint8 [C, H, W, 3], audio float32 [C, N], active bool [C],
+        all on the tick's device -> (records, mixes [C, N])."""
+        if self.group.has_rainbow:
+            # only tint is time-dependent (color_filter.c:169)
+            self.group._refresh_rainbow_tint(time_s)
+        render = self.plan.render
+        records, mixes, self.mixer_state = tick_compute(
+            frames, audio, active, self.mixer_state, *self.consts,
+            mode=render.mode, dst_h=render.dst_h_px, dst_w=render.dst_w)
+        return records, mixes

@@ -24,14 +24,15 @@ def require_cuda() -> torch.device:
 
 
 def default_device() -> torch.device:
-    """The device named by ASCIICHAT_TORCH_DEVICE, checked to exist."""
+    """The device named by ASCIICHAT_TORCH_DEVICE, checked to exist; a CUDA
+    device always carries its index ("cuda" is the current card)."""
     name = os.environ.get(DEVICE_ENV, "cuda")
     if name == "cpu":
         return torch.device("cpu")
     if name != "cuda" and not name.startswith("cuda:"):
         raise ValueError(f"{DEVICE_ENV}={name!r}: expected cuda, cuda:N or cpu")
-    require_cuda()
-    return torch.device(name)
+    current = require_cuda()
+    return current if name == "cuda" else torch.device(name)
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -8,9 +8,10 @@ stream pass as ``c_void_p``; every C entry returns ``cudaGetLastError()`` and
 the wrapper raises on a non-zero code. Building against PyTorch's own headers
 (``torch.utils.cpp_extension``) takes minutes per build; this takes seconds.
 
-The same header that holds the kernels' per-element math
-(``csrc/cells_math.cuh``) is also compiled by g++ into a small CPU library
-(:func:`cells_math_lib`), following ``asciichat_tpu/runtime/native_build.py``,
+The headers that hold the kernels' per-element math (``csrc/cells_math.cuh``
+for the render kernels, ``csrc/mixer_math.cuh`` for the mixer) are also
+compiled by g++ into small CPU libraries (:func:`cells_math_lib`,
+:func:`mixer_math_lib`), following ``asciichat_tpu/runtime/native_build.py``,
 so the tests check that math on a machine with no GPU.
 """
 
@@ -34,6 +35,7 @@ GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 
 # C entry points of libkernels and their argument types (csrc/*.cu).
 ENTRY_POINTS: dict[str, list] = {
@@ -42,6 +44,8 @@ ENTRY_POINTS: dict[str, list] = {
                         _P, _P, _P, _P],
     "ac_render_group": [_I, _P, _I64, _I64, _P, _P, _P, _I, _I, _P, _P, _P,
                         _P, _I64, _P, _P, _P, _P, _P],
+    "ac_mixer": [_P, _P, _I, _I64, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                 _P, _P],
 }
 
 
@@ -138,17 +142,22 @@ class Kernel:
         self.launches += 1
 
 
+def _host_lib(stem: str, header: str) -> ctypes.CDLL:
+    """g++ build of csrc/<stem>_host.cpp over csrc/<header>."""
+    src = CSRC_DIR / f"{stem}_host.cpp"
+    digest = _digest([src, CSRC_DIR / header], GXX_FLAGS)
+    out = BUILD_DIR / f"lib{stem}-{digest}.so"
+    if not out.exists():
+        _compile([os.environ.get("CXX", "g++"), *GXX_FLAGS, f"-I{CSRC_DIR}"],
+                 [src], out)
+    return ctypes.CDLL(str(out))
+
+
 @functools.lru_cache(maxsize=None)
 def cells_math_lib() -> ctypes.CDLL:
     """g++ build of csrc/cells_math_host.cpp: the kernels' per-element math
     over arrays of RGB triples, for the CPU tests."""
-    src = CSRC_DIR / "cells_math_host.cpp"
-    digest = _digest([src, CSRC_DIR / "cells_math.cuh"], GXX_FLAGS)
-    out = BUILD_DIR / f"libcells_math-{digest}.so"
-    if not out.exists():
-        _compile([os.environ.get("CXX", "g++"), *GXX_FLAGS, f"-I{CSRC_DIR}"],
-                 [src], out)
-    lib = ctypes.CDLL(str(out))
+    lib = _host_lib("cells_math", "cells_math.cuh")
     for name in ("cm_luma", "cm_q256", "cm_q16"):
         getattr(lib, name).argtypes = [_P, _I64, _P]
     lib.cm_mono_key.argtypes = [_P, _I64, _P, _P]
@@ -158,4 +167,24 @@ def cells_math_lib() -> ctypes.CDLL:
     lib.cm_pixel_offset.restype = _I64
     for name in ("cm_luma", "cm_mono_key", "cm_q256", "cm_q16", "cm_color_filter"):
         getattr(lib, name).restype = None
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def mixer_math_lib() -> ctypes.CDLL:
+    """g++ build of csrc/mixer_math_host.cpp: K4's scalar math over float32
+    arrays, for the CPU tests."""
+    lib = _host_lib("mixer_math", "mixer_math.cuh")
+    for name in ("mm_db_to_linear", "mm_linear_to_db"):
+        getattr(lib, name).argtypes = [_P, _I64, _P]
+    for name in ("mm_attack_release", "mm_gain_smooth"):
+        getattr(lib, name).argtypes = [_P, _P, _I64, _F, _F, _P]
+    for name in ("mm_gain_reduction_db", "mm_crowd_gain", "mm_soft_clip"):
+        getattr(lib, name).argtypes = [_P, _I64, _P, _P]
+    for name in ("mm_db_to_linear", "mm_linear_to_db", "mm_attack_release",
+                 "mm_gain_smooth", "mm_gain_reduction_db", "mm_crowd_gain",
+                 "mm_soft_clip"):
+        getattr(lib, name).restype = None
+    lib.mm_consts_count.argtypes = []
+    lib.mm_consts_count.restype = _I
     return lib

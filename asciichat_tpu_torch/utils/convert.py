@@ -7,7 +7,9 @@ vectors (tint, fg_on_bg, is_rainbow, filter_on). :func:`group_arrays` reads
 them as numpy from any object that holds them under those names, such as the
 JAX package's ``RenderGroup`` (``np.asarray`` of its fields), and
 :func:`to_torch` places them on a device, so both packages can compute from
-identical state.
+identical state. The audio mixer carries state from tick to tick: its four
+float32 vectors (``MixerState.astuple()``, as numpy) go across through
+:func:`mixer_state`, so both packages continue the same trajectory.
 """
 
 from __future__ import annotations
@@ -52,3 +54,22 @@ def to_torch(arrays: dict[str, np.ndarray], device: torch.device | str
         t = torch.from_numpy(np.ascontiguousarray(a).copy())
         out[name] = t if name in HOST_ARRAYS else t.to(device)
     return out
+
+
+# MixerState.astuple() order; every vector is float32.
+MIXER_STATE = ("envelope", "duck_gain", "comp_envelope", "comp_gain")
+
+
+def mixer_state(state: tuple, device: torch.device | str) -> tuple[torch.Tensor, ...]:
+    """A mixer state as four 1-D float32 host arrays in
+    ``MixerState.astuple()`` order (e.g. ``np.asarray`` of the JAX package's
+    state) -> tensors on ``device``."""
+    if len(state) != len(MIXER_STATE):
+        raise ValueError(f"mixer state: {len(state)} arrays, expected {len(MIXER_STATE)}")
+    out = []
+    for name, a in zip(MIXER_STATE, state):
+        a = np.asarray(a)
+        if a.dtype != np.float32 or a.ndim != 1:
+            raise ValueError(f"{name}: {a.dtype} {a.shape}, expected 1-D float32")
+        out.append(torch.from_numpy(np.array(a)).to(device))
+    return tuple(out)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render path once on one NVIDIA card and check it.
+"""Drive the PyTorch port's render path, audio mixer and live server once on
+one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -19,30 +20,57 @@ so the exit code is non-zero:
    against the oracle, and the mirror CLI's ``--snapshot`` in a subprocess;
 7. server: ``RenderGroup.step`` for 100 ticks, every receiver's bytes against
    the oracle;
-8. the kernels' launch counts over phases 6-7 (each must be > 0) and their
-   times against the plain versions, as one JSON line.
+8. the launch counts of phase 6 (K1, K2) and phase 7 (K3), each path's
+   own, from a reset just before it (each must be > 0);
+9. K4 (the exclude-self mixer) against the plain ``mixer_process_reference``
+   over 200 consecutive ticks at 9 sources x 480 samples with the state
+   carried (bursts, dropped sources, one all-silent tick), then without
+   exclude-self and at 1, 2 and 32 sources;
+10. ``ServerTick.step`` (K3 + K4) for 100 ticks: 9 sources of 800x600 ->
+    203x64 half-block truecolor, 9 receivers, records against the plain
+    tick and mixes within the tolerance; K3's and K4's launches in it > 0;
+11. the live server: ``python -m asciichat_tpu_torch.apps.main server`` in a
+    subprocess, 4 raw plaintext TCP clients: each gets frames byte-identical
+    to the oracle, the exclude-self audio holds, and in a 5 s window where
+    every client uploads pictures and audio the inspector shows the card, no
+    failed device tick, and K3's and K4's launches in the server process
+    (counted by their wrappers from the process's start), with the video
+    and audio ticks' latency;
+12. the kernels, their launches on each path and their times against the
+    plain versions, as one JSON line. A kernel's ``launches`` is the count
+    on its user-facing path: the mirror (phase 6) for K1 and K2, the live
+    server (phase 11) for K3 and K4; ``launches_by_path`` holds every
+    path's own count.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
-Comparisons are exact (tolerance 0): every record is uint8.
+Records are compared exactly (tolerance 0: every record is uint8); the
+mixer's float32 mixes within rtol=2e-4, atol=2e-5, the bound
+tests/test_audio.py holds the JAX mixer to.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from asciichat_tpu.net import packet as pkt
+from asciichat_tpu.net import protocol as proto
+from asciichat_tpu.net.transport import connect_tcp
 from asciichat_tpu.render import emitter, oracle, palette
 from asciichat_tpu.render.types import ColorLevel, RenderMode, TerminalCapabilities
 from asciichat_tpu.runtime.framesource import TestPatternSource
 from asciichat_tpu_torch.models import server
-from asciichat_tpu_torch.ops import cells, compositor, filters, pixel, resize
+from asciichat_tpu_torch.ops import audio, cells, compositor, filters, pixel, resize
 from asciichat_tpu_torch.render.pipeline import AsciiRenderer, plan_render
 from asciichat_tpu_torch.runtime import kernel_build
 from asciichat_tpu_torch.runtime.device import require_cuda
@@ -63,8 +91,20 @@ FG_TRUECOLOR = TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.FOREGROUND)
 HB_TRUECOLOR = TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.HALF_BLOCK)
 FG_256 = TerminalCapabilities(ColorLevel.COLOR_256, RenderMode.FOREGROUND)
 
+MIXER_TICKS = 200
+AUDIO_N = audio.AUDIO_FRAME_SAMPLES  # 480 samples: one 10 ms tick
+AUDIO_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_audio.py:111
+LIVE_FILTERS = ["none", "green", "none", "cyan"]
+LIVE_WAIT_S = 120.0
+LIVE_WINDOW_S = 5.0  # steady serving before the inspector is read
+LIVE_UPLINK_FPS = 15  # each source's new pictures per second in that window
+LIVE_AUDIO_HZ = 100  # each client's AUDIO_BATCHes (480 samples) per second
+
 KERNELS = (resize.RESIZE_KERNEL, cells.CELL_RECORDS_KERNEL,
-           server.RENDER_GROUP_KERNEL)
+           server.RENDER_GROUP_KERNEL, audio.MIXER_KERNEL)
+# the path whose launches a kernel's `launches` reports (see phase 12)
+MAIN_PATH = {"resize_nn": "mirror", "cell_records": "mirror",
+             "render_group": "live_server", "mixer": "live_server"}
 
 CARD = ""  # "name, power limit" of the card, set in phase 1
 
@@ -396,6 +436,344 @@ def phase7_server(dev) -> None:
         f"{SERVER_TICKS / wall:.1f} ticks/s [{CARD}]")
 
 
+def speech(seed: int, s: int, n: int, ticks: int) -> tuple[np.ndarray, np.ndarray]:
+    """samples float32 [ticks, s, n] and active bool [ticks, s] from numpy:
+    each source talks in bursts (a tone plus noise at a level between about
+    -50 and +2 dBFS, held for 1-5 ticks); ~15% of sources drop out per tick
+    and tick 20 has no active source."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(ticks * n) / audio.SAMPLE_RATE
+    samples = np.zeros((s, ticks * n), np.float32)
+    for i in range(s):
+        tone = np.sin(2 * np.pi * rng.uniform(90, 400) * t) + 0.3 * rng.standard_normal(t.size)
+        level = np.zeros(ticks)
+        k = 0
+        while k < ticks:
+            run = int(rng.integers(1, 6))
+            level[k:k + run] = rng.choice([0.0, 0.003, 0.02, 0.1, 0.4, 1.2]) * rng.uniform(0.8, 1.1)
+            k += run
+        samples[i] = tone * np.repeat(level, n)
+    active = rng.random((ticks, s)) < 0.85
+    active[20 % ticks] = False
+    return samples.reshape(s, ticks, n).transpose(1, 0, 2).copy(), active
+
+
+class AudioErr:
+    """Largest absolute error of the mixes against the plain version, and
+    largest relative error where the plain value exceeds the absolute
+    tolerance (below it the relative error of a value near 0 says nothing),
+    over every comparison of a run."""
+
+    def __init__(self):
+        self.abs = 0.0
+        self.rel = 0.0
+
+    def check(self, label: str, got: torch.Tensor, want: torch.Tensor) -> None:
+        d = (got.double() - want.double()).abs()
+        if d.numel():
+            self.abs = max(self.abs, float(d.max()))
+            big = want.double().abs() > AUDIO_TOL["atol"]
+            if big.any():
+                self.rel = max(self.rel, float((d[big] / want.double().abs()[big]).max()))
+        torch.testing.assert_close(got, want, **AUDIO_TOL, msg=lambda m: f"{label}: {m}")
+
+
+def mixer_run(dev, s: int, ticks: int, exclude_self: bool, seed: int, err: AudioErr) -> None:
+    """K4 and the plain mixer over ``ticks`` carried ticks on the card."""
+    samples, active = speech(seed, s, AUDIO_N, ticks)
+    c = s if exclude_self else 1
+    k_state = audio.MixerState.init(s, c, dev).astuple()
+    p_state = k_state
+    for t in range(ticks):
+        x = torch.from_numpy(samples[t]).to(dev)
+        act = torch.from_numpy(active[t]).to(dev)
+        got, new_k = audio.mixer_process(x, act, k_state, exclude_self=exclude_self)
+        want, p_state = audio.mixer_process_reference(x, act, p_state,
+                                                      exclude_self=exclude_self)
+        label = f"K4 S={s} exclude_self={exclude_self} tick {t}"
+        err.check(label, got, want)
+        for a, b in zip(new_k, p_state):
+            err.check(f"{label} state", a, b)
+        if not active[t].any():
+            if torch.count_nonzero(got) or not all(torch.equal(a, b)
+                                                    for a, b in zip(new_k, k_state)):
+                raise AssertionError(f"{label}: an all-silent tick must leave silence "
+                                     "and the state untouched")
+        k_state = new_k
+
+
+def phase9_mixer(dev, err: AudioErr) -> tuple[float, float]:
+    s = SERVER_SOURCES
+    say(f"phase 9: K4 mixer vs plain mixer_process_reference, {MIXER_TICKS} ticks "
+        f"at {s} x {AUDIO_N}")
+    mixer_run(dev, s, MIXER_TICKS, True, seed=9, err=err)
+    say(f"  ok  {MIXER_TICKS} carried ticks (one all-silent): max abs err {err.abs:.3g}, "
+        f"max rel err {err.rel:.3g}")
+    for s_, ex in ((s, False), (1, True), (2, True), (32, True)):
+        mixer_run(dev, s_, 40, ex, seed=10 + s_, err=err)
+        say(f"  ok  S={s_} exclude_self={ex}, 40 ticks")
+    samples, active = speech(1, s, AUDIO_N, 1)
+    x = torch.from_numpy(samples[0]).to(dev)
+    act = torch.from_numpy(active[0] | True).to(dev)
+    state = audio.MixerState.init(s, s, dev).astuple()
+    k = cuda_ms(lambda: audio.mixer_process(x, act, state), iters=50)
+    pl = cuda_ms(lambda: audio.mixer_process_reference(x, act, state), iters=50)
+    g = graph_ms(lambda: audio.mixer_process(x, act, state))
+    timing(f"K4 {s} x {AUDIO_N}", k, pl, g)
+    return k, pl
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def phase10_server_tick(dev, err: AudioErr) -> dict[str, int]:
+    say(f"phase 10: ServerTick.step (K3 + K4), {SERVER_TICKS} ticks")
+    sizes = [(UPLINK_W, UPLINK_H)] * SERVER_SOURCES
+    plan = server.plan_tick(sizes, TERM_W, TERM_H, HB_TRUECOLOR)
+    tick = server.ServerTick(plan, client_filters=SERVER_FILTERS, device=dev)
+    rng = np.random.default_rng(17)
+    stacks = [torch.from_numpy(rng.integers(0, 256, (SERVER_SOURCES, UPLINK_H, UPLINK_W, 3),
+                                            dtype=np.uint8)).to(dev) for _ in range(3)]
+    samples, active = speech(23, SERVER_SOURCES, AUDIO_N, SERVER_TICKS)
+    audio_dev = torch.from_numpy(samples).to(dev)
+    active_dev = torch.from_numpy(active).to(dev)
+    plain_state = tick.mixer_state
+    r = plan.render
+    geo = dict(mode=r.mode, dst_h=r.dst_h_px, dst_w=r.dst_w)
+    reset_launches()
+    outs = []
+    for t in range(SERVER_TICKS):
+        outs.append(tick.step(stacks[t % 3], audio_dev[t], active_dev[t], 100.0 + t / 60))
+    launches = read_launches()
+    say(f"  launches over the {SERVER_TICKS} ticks: {launches}")
+    for name in (server.RENDER_GROUP_KERNEL.name, audio.MIXER_KERNEL.name):
+        if launches[name] == 0:
+            raise AssertionError(f"ServerTick.step never launched {name}")
+    # the plain tick, replayed on the same inputs: rainbow tint per tick
+    g = tick.group
+    for t, (records, mixes) in enumerate(outs):
+        tint = torch.from_numpy(filters.filter_params(SERVER_FILTERS, 100.0 + t / 60)[0]).to(dev)
+        want = server.render_compute(stacks[t % 3], g.ramp, tint, g.fg_on_bg, g.is_rainbow,
+                                     g.filter_on, g.maps.cidx, g.maps.src_y, g.maps.src_x,
+                                     g.maps.comp_mask, **geo)
+        if max_abs_err(records, want) != 0:
+            raise AssertionError(f"ServerTick tick {t}: records differ from the plain tick")
+        want_mix, plain_state = audio.mixer_process_reference(audio_dev[t], active_dev[t],
+                                                              plain_state)
+        err.check(f"ServerTick tick {t} mixes", mixes, want_mix)
+    say(f"  ok  {SERVER_TICKS} ticks x {len(SERVER_FILTERS)} receivers: records exact, "
+        f"mixes within rtol=2e-4 atol=2e-5 (max abs err {err.abs:.3g})")
+    dev_ms = cuda_ms(lambda: tick.step(stacks[0], audio_dev[0], active_dev[0], 100.0), iters=50)
+    say(f"  time ServerTick.step: {dev_ms:.4f} ms per tick (CUDA events, eager) [{CARD}]")
+    return launches
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class LiveClient:
+    """A raw plaintext ACIP client: a reader task records what arrives."""
+
+    def __init__(self, t, want: bytes):
+        self.t = t
+        self.want = want
+        self.registered = asyncio.Event()  # CLEAR_CONSOLE: caps were taken
+        self.matched = asyncio.Event()  # an ASCII_FRAME equal to `want`
+        self.frames = 0
+        self.mixes = 0
+        self.audio_peaks: list[float] = []
+        self.task = asyncio.create_task(self._read())
+
+    async def _read(self) -> None:
+        while True:
+            ptype, payload = await self.t.recv()
+            if ptype == pkt.PacketType.CLEAR_CONSOLE:
+                self.registered.set()
+            elif ptype == pkt.PacketType.ASCII_FRAME:
+                self.frames += 1
+                if pkt.unpack_ascii_frame(payload)[0] == self.want:
+                    self.matched.set()
+            elif ptype == pkt.PacketType.AUDIO_BATCH:
+                self.mixes += 1
+                body, _, total, _, _ = pkt.unpack_audio_batch(payload)
+                self.audio_peaks.append(float(np.abs(np.frombuffer(body, "<f4")[:total]).max()))
+
+
+async def live_session(port: int, pictures: list[np.ndarray], wants: list[bytes]) -> None:
+    P = pkt.PacketType
+    clients = []
+    try:
+        for name, want in zip(LIVE_FILTERS, wants):
+            t = await connect_tcp("127.0.0.1", port)
+            c = LiveClient(t, want)
+            clients.append(c)
+            wire = proto.WireCapabilities(
+                caps=HB_TRUECOLOR, width=TERM_W, height=TERM_H,
+                capabilities_mask=0x1,  # no compression: no zstandard needed
+                color_filter=filters.FILTER_NAMES.index(name))
+            await t.send(P.CLIENT_CAPABILITIES, wire.pack())
+            # registered in order, so the composite's source order is known
+            await asyncio.wait_for(c.registered.wait(), LIVE_WAIT_S)
+        for c, pic in zip(clients, pictures):
+            await c.t.send(P.IMAGE_FRAME, pkt.pack_image_frame(pic.tobytes(), UPLINK_W, UPLINK_H))
+        for i, c in enumerate(clients):
+            try:
+                await asyncio.wait_for(c.matched.wait(), LIVE_WAIT_S)
+            except TimeoutError:
+                raise AssertionError(f"live client {i} ({LIVE_FILTERS[i]}): none of its "
+                                     f"{c.frames} frames equals the oracle") from None
+        say(f"  ok  {len(clients)} clients: frames byte-identical to the oracle "
+            f"({len(wants[0])} bytes each)")
+        tone = (0.5 * np.sin(np.arange(AUDIO_N) / 7)).astype("<f4")
+        silence = np.zeros(AUDIO_N, "<f4")
+        speaker, quiet = clients[0], clients[1]
+        end = asyncio.get_running_loop().time() + LIVE_WAIT_S
+        # talk until the quiet client has heard the tone and the speaker has
+        # had ten mixes of its own (mixes come only while audio arrives)
+        while not (any(p > 0.01 for p in quiet.audio_peaks)
+                   and len(speaker.audio_peaks) >= 10):
+            if asyncio.get_running_loop().time() > end:
+                raise AssertionError(f"audio: {len(quiet.audio_peaks)} mixes to the quiet "
+                                     f"client, {len(speaker.audio_peaks)} to the speaker, "
+                                     "and the tone was not heard")
+            await speaker.t.send(P.AUDIO_BATCH, pkt.pack_audio_batch(tone.tobytes(), AUDIO_N, 1))
+            await quiet.t.send(P.AUDIO_BATCH, pkt.pack_audio_batch(silence.tobytes(), AUDIO_N, 1))
+            await asyncio.sleep(0.01)
+        if max(speaker.audio_peaks) >= 1e-6:
+            raise AssertionError(f"the speaker hears itself: peak {max(speaker.audio_peaks)}")
+        say(f"  ok  exclude-self audio: the quiet client hears the tone (peak "
+            f"{max(quiet.audio_peaks):.3f}), the speaker's own mix peaks at "
+            f"{max(speaker.audio_peaks):.3g} over {len(speaker.audio_peaks)} mixes")
+        # a steady window for the inspector's tick latency and stage split:
+        # every source uploads a new picture at LIVE_UPLINK_FPS (so rows of
+        # the stack change) and talks at LIVE_AUDIO_HZ (a tone of its own),
+        # every receiver takes each tick's frame and each tick's mix
+        loop = asyncio.get_running_loop()
+        frames0 = [c.frames for c in clients]
+        mixes0 = [c.mixes for c in clients]
+        voices = [(0.2 * np.sin(np.arange(AUDIO_N) * (0.05 + 0.03 * i))).astype("<f4")
+                  for i in range(len(clients))]
+        t0 = loop.time()
+
+        async def paced(hz: float, send) -> int:
+            k = 0
+            while loop.time() - t0 < LIVE_WINDOW_S:
+                k += 1
+                for i, c in enumerate(clients):
+                    await send(i, c, k)
+                await asyncio.sleep(max(0.0, t0 + k / hz - loop.time()))
+            return k
+
+        async def picture(i, c, k):
+            pic = pictures[(i + k) % len(pictures)]
+            await c.t.send(P.IMAGE_FRAME, pkt.pack_image_frame(pic.tobytes(), UPLINK_W, UPLINK_H))
+
+        async def voice(i, c, k):
+            await c.t.send(P.AUDIO_BATCH, pkt.pack_audio_batch(voices[i].tobytes(), AUDIO_N, 1))
+
+        uploads, batches = await asyncio.gather(paced(LIVE_UPLINK_FPS, picture),
+                                                paced(LIVE_AUDIO_HZ, voice))
+        took = loop.time() - t0
+        rates = [(c.frames - f0) / took for c, f0 in zip(clients, frames0)]
+        mix_rates = [(c.mixes - m0) / took for c, m0 in zip(clients, mixes0)]
+        say(f"  window {took:.1f} s: {uploads} pictures and {batches} audio batches per "
+            f"source; per client per second, frames received "
+            f"{[round(r, 1) for r in rates]}, mixes received "
+            f"{[round(r, 1) for r in mix_rates]} [{CARD}]")
+    finally:
+        for c in clients:
+            c.task.cancel()
+            await c.t.close()
+
+
+def phase11_live_server() -> dict[str, int]:
+    say("phase 11: live server, python -m asciichat_tpu_torch.apps.main server, "
+        f"{len(LIVE_FILTERS)} plaintext TCP clients")
+    port, inspect_port = free_port(), free_port()
+    rng = np.random.default_rng(31)
+    pictures = [rng.integers(0, 256, (UPLINK_H, UPLINK_W, 3), dtype=np.uint8)
+                for _ in LIVE_FILTERS]
+    sizes = [(UPLINK_W, UPLINK_H)] * len(pictures)
+    comp = compositor.composite_reference(np.stack(pictures),
+                                          compositor.plan_composite(sizes, TERM_W, TERM_H))
+    wants = [oracle.ascii_convert_with_capabilities(
+        filters.apply_color_filter_reference(comp, name), TERM_W, 2 * TERM_H, HB_TRUECOLOR)
+        for name in LIVE_FILTERS]
+    log_path = ROOT / "build" / "chip_smoke_server.log"
+    log_path.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ)
+    env.pop("ASCIICHAT_TORCH_DEVICE", None)  # the server's default device: the card
+    cmd = [sys.executable, "-m", "asciichat_tpu_torch.apps.main", "server", "--host",
+           "127.0.0.1", "--port", str(port), "--inspect-port", str(inspect_port),
+           "--log-level", "WARNING"]
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log, stderr=log)
+    try:
+        t0 = time.monotonic()
+        while True:
+            if proc.poll() is not None:
+                raise RuntimeError(f"server exited {proc.returncode}")
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=1).close()
+                break
+            except OSError:
+                if time.monotonic() - t0 > LIVE_WAIT_S:
+                    raise RuntimeError("server never accepted a connection") from None
+                time.sleep(0.1)
+        say(f"  server accepting after {time.monotonic() - t0:.1f} s")
+        asyncio.run(live_session(port, pictures, wants))
+        url = f"http://127.0.0.1:{inspect_port}/state/server"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            state = json.loads(r.read())
+        if proc.poll() is not None:
+            raise RuntimeError(f"server exited {proc.returncode}")
+    except BaseException:
+        proc.kill()
+        proc.wait(timeout=30)
+        say(f"  server log:\n{log_path.read_text(errors='replace')[-4000:]}")
+        raise
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+    bad = []
+    if not str(state.get("device", "")).startswith("cuda"):
+        bad.append(f"device {state.get('device')!r}")
+    if not state.get("tick_compute", 0) > 0:
+        bad.append("tick_compute 0")
+    for key in ("device_failures", "audio_failures"):
+        if state.get(key) != 0:
+            bad.append(f"{key} {state.get(key)}")
+    for key in ("render_launches", "mixer_launches"):
+        if not state.get(key, 0) > 0:
+            bad.append(f"{key} {state.get(key)}")
+    if bad:
+        raise AssertionError(f"inspector /state/server: {'; '.join(bad)}")
+    lat, alat = state["tick_latency"], state["audio_tick_latency"]
+    say(f"  ok  inspector: device {state['device']}, tick_compute {state['tick_compute']}, "
+        f"device_failures 0, audio_failures 0, render_launches {state['render_launches']}, "
+        f"mixer_launches {state['mixer_launches']}")
+    say(f"  time live server video tick ({lat['n']} ticks): p50 {lat['p50_ms']} ms, "
+        f"p99 {lat['p99_ms']} ms, worst {lat['worst_ms']} ms; stages (ms per tick) "
+        f"{json.dumps(state['tick_stages_ms'])} [{CARD}]")
+    say(f"  time live server audio tick ({alat['n']} ticks): p50 {alat['p50_ms']} ms, "
+        f"p99 {alat['p99_ms']} ms, worst {alat['worst_ms']} ms [{CARD}]")
+    # a fresh process: its counts ran from 0, and only the server launched
+    return {server.RENDER_GROUP_KERNEL.name: state["render_launches"],
+            audio.MIXER_KERNEL.name: state["mixer_launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -412,21 +790,39 @@ def main() -> int:
     stack = make_frames(SERVER_SOURCES, UPLINK_H, UPLINK_W, seed=5, device=dev)
     times["render_group"] = phase5_group(dev, stack, errs["render_group"])
 
-    for k in KERNELS:
-        k.launches = 0
+    paths: dict[str, dict[str, int]] = {}  # path -> kernel -> launches
+    reset_launches()
     phase6_mirror(dev, frames)
+    paths["mirror"] = read_launches()
+    reset_launches()
     phase7_server(dev)
-    launches = {k.name: k.launches for k in KERNELS}
-    say(f"phase 8: launches over phases 6-7: {launches}")
-    missing = [name for name, n in launches.items() if n == 0]
+    paths["server_render"] = read_launches()
+    say(f"phase 8: launches, each path from its own reset: {paths}")
+    need = [("mirror", "resize_nn"), ("mirror", "cell_records"),
+            ("server_render", "render_group")]
+
+    mixer_err = AudioErr()
+    times["mixer"] = phase9_mixer(dev, mixer_err)
+    paths["server_tick"] = phase10_server_tick(dev, mixer_err)
+    paths["live_server"] = phase11_live_server()
+    need += [("server_tick", "render_group"), ("server_tick", "mixer")]
+    need += [(path, name) for name, path in MAIN_PATH.items()]
+    say(f"phase 12: launches by path: {paths}")
+    missing = [f"{name} on {path}" for path, name in need if not paths[path].get(name)]
     if missing:
-        raise AssertionError(f"kernels not launched by the main path: {missing}")
-    report = {"kernels": [
-        {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": launches[k.name],
-         "max_abs_err": max(errs[k.name]), "ms": times[k.name][0],
-         "plain_ms": times[k.name][1]}
-        for k in KERNELS]}
+        raise AssertionError(f"kernels not launched: {missing}")
+    report = {"kernels": []}
+    for k in KERNELS:
+        entry = {"name": k.name, "route": "cuda", "source": k.source,
+                 "replaces": k.replaces, "launches": paths[MAIN_PATH[k.name]][k.name],
+                 "launches_by_path": {p: n[k.name] for p, n in paths.items()
+                                      if k.name in n}}
+        if k is audio.MIXER_KERNEL:
+            entry.update(max_abs_err=mixer_err.abs, max_rel_err=mixer_err.rel)
+        else:
+            entry["max_abs_err"] = max(errs[k.name])
+        entry.update(ms=times[k.name][0], plain_ms=times[k.name][1])
+        report["kernels"].append(entry)
     say(json.dumps(report))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

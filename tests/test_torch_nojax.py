@@ -43,6 +43,24 @@ def test_port_imports_without_jax():
     assert int(out.stdout.split()[-1]) >= 15  # every module was walked
 
 
+SERVER_IMPORTS = """
+import sys
+import asciichat_tpu_torch.apps.server
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "cryptography"))
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_server_imports_neither_jax_nor_cryptography():
+    """A plaintext server needs neither: the crypto modules load only for an
+    encrypted session or an auth option."""
+    out = _run(["-c", SERVER_IMPORTS], REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
 def _no_result(stdout: str) -> bool:
     for line in stdout.splitlines():
         try:

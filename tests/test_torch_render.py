@@ -163,7 +163,7 @@ def test_mirror_matrix_not_ported():
 
 
 @pytest.mark.parametrize("argv", [
-    ["server"], ["client", "127.0.0.1"], ["discovery-service"], ["bench"],
+    ["discovery"], ["client", "127.0.0.1"], ["discovery-service"], ["bench"],
     ["mirror", "--test-pattern", "--matrix", "--snapshot"],
     ["mirror", "--test-pattern", "--render-file", "out.y4m"],
 ])
