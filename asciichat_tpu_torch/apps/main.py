@@ -1,30 +1,30 @@
-"""Command line of the port: the JAX package's parser, the port's mirror and
+"""Command line of the port: the reference CLI's parser, the port's mirror and
 server.
 
     python -m asciichat_tpu_torch.apps.main mirror --test-pattern --snapshot
     python -m asciichat_tpu_torch.apps.main server --port 27224
 
-The parser is ``asciichat_tpu.apps.main.build_parser()`` (JAX-free at module
-level), so flags, help and defaults are the reference CLI's. ``mirror`` and
-``server`` are ported; every other mode (client, discovery, ...), mirror's
-``--render-file`` and ``--matrix``, and ``--config`` exit non-zero with "not
-yet ported" and never run the JAX implementation. The device is
-``ASCIICHAT_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` for the plain
-PyTorch versions).
+:func:`build_parser` is built from the port's options registry
+(``utils/options.py``) as ``asciichat_tpu/apps/main.py`` builds it, so flags,
+help and defaults are the reference CLI's. ``mirror`` and ``server`` are
+ported; every other mode (client, discovery, ...), mirror's ``--render-file``
+and ``--matrix``, the server's ``--ws-port`` and ``--mdns``, and ``--config``
+exit non-zero with "not yet ported". The device is ``ASCIICHAT_TORCH_DEVICE``
+(``cuda`` by default, ``cpu`` for the plain PyTorch versions).
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 
-from asciichat_tpu.apps.main import build_parser
-from asciichat_tpu.render.palette import BUILTIN_PALETTES
-from asciichat_tpu.render.types import RenderMode
-from asciichat_tpu.utils import logsys
-from asciichat_tpu.utils.errors import AsciiChatError
+from asciichat_tpu_torch.render.palette import BUILTIN_PALETTES
+from asciichat_tpu_torch.render.types import RenderMode
+from asciichat_tpu_torch.utils import logsys
+from asciichat_tpu_torch.utils.errors import AsciiChatError
+from asciichat_tpu_torch.utils.options import Mode, apply_to_parser, default_registry
 
 NOT_PORTED = 2  # exit code of a mode or option the port does not have yet
-PORTED_MODES = ("mirror", "server")
 
 
 def _not_ported(what: str) -> int:
@@ -34,9 +34,9 @@ def _not_ported(what: str) -> int:
 
 
 def cmd_mirror(args) -> int:
-    from asciichat_tpu.runtime.framesource import open_source
-    from asciichat_tpu.utils import term
     from asciichat_tpu_torch.models.mirror import MirrorSession
+    from asciichat_tpu_torch.runtime.framesource import open_source
+    from asciichat_tpu_torch.utils import term
 
     if args.render_file:
         return _not_ported("mirror --render-file")
@@ -59,9 +59,84 @@ def cmd_mirror(args) -> int:
     return 0
 
 
+def cmd_server(args) -> int:
+    if args.ws_port is not None:
+        return _not_ported("server --ws-port (WebSocket, WebRTC and the web client)")
+    if args.mdns:
+        return _not_ported("server --mdns")
+    from asciichat_tpu_torch.apps import server
+
+    return server.main(args)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The reference CLI's parser (``asciichat_tpu/apps/main.py``), generated
+    from the options registry: the same modes, flags, help and defaults.
+    Only the ported modes carry a handler (``fn``)."""
+    class _NoAbbrevParser(argparse.ArgumentParser):
+        """allow_abbrev=False everywhere: prefix abbreviations ('--wid')
+        would dodge the typed-flag detection of a config file."""
+
+        def __init__(self, *a, **kw):
+            kw.setdefault("allow_abbrev", False)
+            super().__init__(*a, **kw)
+
+    ap = _NoAbbrevParser(prog="asciichat-tpu",
+                         description="TPU-native terminal video chat")
+    sub = ap.add_subparsers(dest="mode", required=True,
+                            parser_class=_NoAbbrevParser)
+    reg = default_registry()
+
+    m = sub.add_parser("mirror", help="local webcam->ASCII loop, no network")
+    apply_to_parser(reg, m, Mode.MIRROR)
+    m.set_defaults(fn=cmd_mirror)
+
+    s = sub.add_parser("server", help="multi-client compositing server")
+    apply_to_parser(reg, s, Mode.SERVER)
+    s.set_defaults(fn=cmd_server)
+
+    c = sub.add_parser("client", help="connect to a server")
+    apply_to_parser(reg, c, Mode.CLIENT)
+
+    d = sub.add_parser("discovery-service", help="ACDS rendezvous server")
+    apply_to_parser(reg, d, Mode.ACDS, default_overrides={"port": 27225})
+
+    dc = sub.add_parser("discovery", help="P2P session via discovery service")
+    apply_to_parser(reg, dc, Mode.DISCOVERY)
+
+    sub.add_parser("bench", help="run the throughput benchmark")
+
+    st = sub.add_parser("strings", help="session word-string tool")
+    st.add_argument("--count", type=int, default=1)
+    st.add_argument("--validate", default=None)
+    st.add_argument("--list-words", action="store_true")
+    st.set_defaults(log_level="WARNING")
+
+    q = sub.add_parser(
+        "query", help="attach to a RUNNING asciichat pid: /proc state + "
+                      "Python stacks (no --inspect-port needed)")
+    q.add_argument("pid", type=int)
+    q.add_argument("--serve", type=int, default=None, metavar="PORT",
+                   help="serve the report over HTTP instead of one-shot")
+    q.add_argument("--force", action="store_true",
+                   help="signal SIGUSR1 even if the pid doesn't look like "
+                        "an asciichat process")
+    q.set_defaults(log_level="WARNING")
+
+    comp = sub.add_parser("completions", help="generate shell completions")
+    comp.add_argument("shell", choices=["bash", "zsh", "fish", "pwsh"])
+    comp.set_defaults(log_level="WARNING")
+
+    man = sub.add_parser("manpage", help="generate the troff man page")
+    man.set_defaults(log_level="WARNING")
+
+    return ap
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode not in PORTED_MODES:
+    fn = getattr(args, "fn", None)
+    if fn is None:
         return _not_ported(f"mode {args.mode!r}")
     if getattr(args, "config", None):
         return _not_ported("--config")
@@ -72,11 +147,7 @@ def main(argv=None) -> int:
         json_output=getattr(args, "log_json", False),
     )
     try:
-        if args.mode == "server":
-            from asciichat_tpu_torch.apps import server
-
-            return server.main(args)
-        return cmd_mirror(args)
+        return fn(args)
     except AsciiChatError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

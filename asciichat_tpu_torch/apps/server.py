@@ -20,7 +20,11 @@ order and under the same names; only the device seam differs:
 - ``net.crypto`` and the other ``cryptography`` users are imported only when
   a client opens with a crypto handshake packet (types 1000-1199) or an auth
   option is given, so a plaintext server runs where ``cryptography`` is not
-  installed; an auth option without it refuses to start.
+  installed; an auth option without it refuses to start;
+- it serves TCP only: WebSocket, WebRTC, the web client and mDNS are not yet
+  ported (``apps/main.py`` refuses ``--ws-port`` and ``--mdns``).
+The host modules it uses (``net/``, ``runtime/``, ``utils/``, ``render/``)
+are the port's own copies of the JAX package's.
 The device is ``ASCIICHAT_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` for
 the plain versions). There is no multi-device mesh (ROADMAP.md).
 
@@ -48,18 +52,18 @@ import time
 import numpy as np
 import torch
 
-from asciichat_tpu.net import packet as pkt
-from asciichat_tpu.net import protocol as proto
-from asciichat_tpu.net.transport import Transport, serve_tcp
-from asciichat_tpu.render import palette as pal
-from asciichat_tpu.runtime.double_buffer import LatestFrame
-from asciichat_tpu.runtime.ringbuffer import AudioRing
-from asciichat_tpu.utils.logsys import get_logger, ring_log
-from asciichat_tpu.utils.ui import Stats
 from asciichat_tpu_torch.models.server import RENDER_GROUP_KERNEL, RenderGroup
+from asciichat_tpu_torch.net import packet as pkt
+from asciichat_tpu_torch.net import protocol as proto
+from asciichat_tpu_torch.net.transport import Transport, serve_tcp
 from asciichat_tpu_torch.ops import audio as audio_ops
 from asciichat_tpu_torch.ops import filters
+from asciichat_tpu_torch.render import palette as pal
 from asciichat_tpu_torch.runtime.device import default_device
+from asciichat_tpu_torch.runtime.double_buffer import LatestFrame
+from asciichat_tpu_torch.runtime.ringbuffer import AudioRing
+from asciichat_tpu_torch.utils.logsys import get_logger, ring_log
+from asciichat_tpu_torch.utils.ui import Stats
 
 log = get_logger("server")
 
@@ -150,8 +154,7 @@ def _client_palette(wc, server_palette: str) -> str:
 class AsciiChatServer:
     def __init__(self, host: str = "0.0.0.0", port: int = 27224,
                  palette: str = pal.DEFAULT_PALETTE, compression_level: int = 1,
-                 password: str | None = None, ws_port: int | None = None,
-                 mdns: bool = False, inspect_port: int | None = None,
+                 password: str | None = None, inspect_port: int | None = None,
                  status_screen: bool = False, allowed_keys=None,
                  gpg_keyring=None, host_identity=None):
         self.status_screen = status_screen
@@ -162,8 +165,6 @@ class AsciiChatServer:
         self.host_identity = host_identity
         self.host = host
         self.port = port
-        self.ws_port = ws_port
-        self.mdns = mdns
         self.inspect_port = inspect_port
         self.password = password
         self.palette = palette
@@ -211,8 +212,8 @@ class AsciiChatServer:
         # timers (ASCII_BREAKDOWN analog, ascii.c:268-382), p50/p99 tick
         # latency, frame age (capture->pickup wait), SLOW-tick warnings
         # against the 16.67 ms deadline (render.c:4-7).
-        from asciichat_tpu.utils.logsys import RateLimited
-        from asciichat_tpu.utils.trace import LatencyTracker, Tracer
+        from asciichat_tpu_torch.utils.logsys import RateLimited
+        from asciichat_tpu_torch.utils.trace import LatencyTracker, Tracer
 
         self.tick_tracer = Tracer("tick")
         self.tick_latency = LatencyTracker()  # tick start -> frames queued
@@ -293,8 +294,8 @@ class AsciiChatServer:
                     return None
                 if 1000 <= first[0] <= 1199:
                     try:
-                        from asciichat_tpu.net.crypto import CryptoContext
-                        from asciichat_tpu.net.handshake import (
+                        from asciichat_tpu_torch.net.crypto import CryptoContext
+                        from asciichat_tpu_torch.net.handshake import (
                             SecureChannel, server_handshake)
                     except ImportError as e:
                         # a plaintext server runs without `cryptography`;
@@ -370,7 +371,7 @@ class AsciiChatServer:
                 au, w, h, fmt = pkt.unpack_image_frame(payload)
                 if not 1 <= w <= MAX_UPLOAD_W or not 1 <= h <= MAX_UPLOAD_H:
                     raise ValueError(f"bad h265 frame dims {w}x{h}")
-                from asciichat_tpu.runtime import codecs
+                from asciichat_tpu_torch.runtime import codecs
 
                 if c.h265_unavailable:
                     continue  # already told this client to fall back once
@@ -430,7 +431,7 @@ class AsciiChatServer:
             elif ptype == P.AUDIO_OPUS_BATCH:
                 # per-client Opus decode into the same mixer ring
                 # (render.c:57 per-client codec contexts)
-                from asciichat_tpu.runtime import codecs
+                from asciichat_tpu_torch.runtime import codecs
 
                 body, _bc, total, _rate, _ch = pkt.unpack_audio_batch(payload)
                 if c.opus is None:
@@ -463,7 +464,7 @@ class AsciiChatServer:
         (src/server state broadcast, packet.h:5008)."""
         import json
 
-        from asciichat_tpu.runtime.codecs import probe_h265_encoder, probe_video_codecs
+        from asciichat_tpu_torch.runtime.codecs import probe_h265_encoder, probe_video_codecs
 
         codecs = probe_video_codecs()
         payload = json.dumps({
@@ -661,7 +662,7 @@ class AsciiChatServer:
         batched per group. Counterpart of src/server/stream.c:958 +
         render.c:340 where the per-client fan-out is threads; here it is the
         batch dimension."""
-        from asciichat_tpu.render import emitter
+        from asciichat_tpu_torch.render import emitter
 
         # desired_fps pacing BEFORE grouping/rendering: a group whose
         # members are all paced out would pay the full device render +
@@ -830,7 +831,7 @@ class AsciiChatServer:
                 # hit the uplink handler that lazily creates the context —
                 # create it on the DOWNLINK side too, else they get raw
                 # float32 at ~1.5 Mbps instead of the negotiated codec
-                from asciichat_tpu.runtime import codecs
+                from asciichat_tpu_torch.runtime import codecs
 
                 try:
                     new = codecs.OpusCodec()
@@ -992,7 +993,7 @@ class AsciiChatServer:
         # first call may compile native/avshim.cpp and open an x265 thread
         # pool, or build the kernels with nvcc (seconds), and must never
         # block the event loop or stall the first ticks
-        from asciichat_tpu.runtime.codecs import probe_h265_encoder, probe_video_codecs
+        from asciichat_tpu_torch.runtime.codecs import probe_h265_encoder, probe_video_codecs
 
         def _warm():
             if self.device.type == "cuda":
@@ -1008,43 +1009,14 @@ class AsciiChatServer:
         self._server = await serve_tcp(self._handle_conn, self.host, self.port)
         self.port = self._server.sockets[0].getsockname()[1]  # port 0: the bound one
         log.info("listening on %s:%d (tcp)", self.host, self.port)
-        ws_server = None
-        webrtc_gw = None
-        if self.ws_port:
-            from asciichat_tpu.apps.webclient import WebRtcGateway, make_http_handler
-            from asciichat_tpu.net.websocket import serve_ws
-
-            webrtc_gw = WebRtcGateway(self._handle_conn)
-            post = None
-            if webrtc_gw.available():
-                def post(path, body, _gw=webrtc_gw):
-                    route = path.split("?", 1)[0]
-                    if route == "/webrtc/offer":
-                        return _gw.on_offer(body)
-                    if route == "/webrtc/candidate":  # trickle ICE
-                        return _gw.on_candidate(path, body)
-                    return None
-            ws_server = await serve_ws(self._handle_conn, self.host, self.ws_port,
-                                       pages=make_http_handler(), post=post)
-            log.info("listening on %s:%d (websocket + browser client page%s)",
-                     self.host, self.ws_port,
-                     " + webrtc signaling" if post else "")
-        announcer = None
-        if self.mdns:
-            from asciichat_tpu.net.mdns import MdnsAnnouncer
-
-            announcer = MdnsAnnouncer("asciichat", self.port,
-                                      {"ver": "1", "ws": str(self.ws_port or 0)})
-            announcer.start()
-            log.info("mDNS announcing _asciichat._tcp.local")
         insp = None
         if self.inspect_port is not None:
-            from asciichat_tpu.runtime.inspector import Inspector
+            from asciichat_tpu_torch.runtime.inspector import Inspector
 
             insp = Inspector(self.inspect_port)
             insp.register("server", self.server_state)
             insp.register("logs", lambda: ring_log.tail(100))
-            from asciichat_tpu.utils import syncdebug
+            from asciichat_tpu_torch.utils import syncdebug
 
             insp.register("sync", syncdebug.dump_state)
             actual = insp.start()
@@ -1059,12 +1031,6 @@ class AsciiChatServer:
             tick.cancel()
             if status_task:
                 status_task.cancel()
-            if ws_server:
-                ws_server.close()
-            if webrtc_gw:
-                webrtc_gw.close()
-            if announcer:
-                announcer.stop()
             if insp:
                 insp.stop()
 
@@ -1098,15 +1064,14 @@ class AsciiChatServer:
         (lib/ui/status.c ui_status_display at the display rate)."""
         import shutil as _shutil
 
-        from asciichat_tpu.utils import term as term_mod
-        from asciichat_tpu.utils.ui import StatusScreen
+        from asciichat_tpu_torch.utils import term as term_mod
+        from asciichat_tpu_torch.utils.ui import StatusScreen
 
         size = _shutil.get_terminal_size(fallback=(80, 24))
         screen = StatusScreen(
             "server",
             lambda: {
-                "listen": f"{self.host}:{self.port}"
-                          + (f" ws:{self.ws_port}" if self.ws_port else ""),
+                "listen": f"{self.host}:{self.port}",
                 "clients": f"{len(self.clients)}/{MAX_CLIENTS}",
                 "tick": f"{self.ticks} ({self.device})",
                 "stats": self.stats.report(len(self.clients)),
@@ -1133,7 +1098,7 @@ def main(args) -> int:
         try:
             import cryptography  # noqa: F401
 
-            from asciichat_tpu.net import crypto, handshake  # noqa: F401
+            from asciichat_tpu_torch.net import crypto, handshake  # noqa: F401
         except ImportError as e:
             print("error: --password, --allowed-keys and --gpg-keyring need the "
                   f"`cryptography` package, which cannot be imported ({e})",
@@ -1143,13 +1108,13 @@ def main(args) -> int:
     if args.allowed_keys:
         # file path OR forge specs ('github:alice,gitlab:bob' fetched over
         # HTTPS — lib/crypto/https_keys.c role, net/httpskeys.py)
-        from asciichat_tpu.net.httpskeys import load_allowed_keys
+        from asciichat_tpu_torch.net.httpskeys import load_allowed_keys
 
         allowed = load_allowed_keys(args.allowed_keys)
         log.info("SSH client auth required (%d allowed key(s))", len(allowed))
     gpg_keyring = None
     if args.gpg_keyring:
-        from asciichat_tpu.net.gpgauth import GpgKeyring
+        from asciichat_tpu_torch.net.gpgauth import GpgKeyring
 
         gpg_keyring = GpgKeyring(args.gpg_keyring)
         log.info("GPG client auth required (keyring %s)", args.gpg_keyring)
@@ -1157,7 +1122,7 @@ def main(args) -> int:
     if allowed is not None or gpg_keyring is not None:
         import os as _os2
 
-        from asciichat_tpu.net.identity import Identity
+        from asciichat_tpu_torch.net.identity import Identity
 
         key_path = _os2.path.expanduser(
             _os2.environ.get("ASCIICHAT_HOST_KEY", "~/.asciichat/host_key"))
@@ -1174,8 +1139,7 @@ def main(args) -> int:
                              palette=pal.BUILTIN_PALETTES.get(args.palette,
                                                               args.palette),
                              compression_level=args.compress,
-                             password=args.password, ws_port=args.ws_port,
-                             mdns=args.mdns, inspect_port=args.inspect_port,
+                             password=args.password, inspect_port=args.inspect_port,
                              status_screen=args.status and _sys.stdout.isatty(),
                              allowed_keys=allowed, gpg_keyring=gpg_keyring,
                              host_identity=host_identity)

@@ -3,8 +3,8 @@
 Counterpart of ``asciichat_tpu/models/mirror.py`` on the port's renderer.
 Capture runs on a thread feeding a drop-on-full queue; the main loop converts
 on the renderer's device and writes frames. ``--snapshot`` renders one frame
-and exits (session/render.c:128-143). Display and pacing are the shared
-session framework (``asciichat_tpu.models.session``).
+and exits (session/render.c:128-143). Display and pacing are the session
+framework's (``models/session.py``).
 """
 
 from __future__ import annotations
@@ -16,15 +16,15 @@ import time
 import numpy as np
 import torch
 
-from asciichat_tpu.models.session import DisplaySink, Pacer
-from asciichat_tpu.render.types import TerminalCapabilities
-from asciichat_tpu.runtime.double_buffer import FrameQueue
-from asciichat_tpu.runtime.framesource import FrameSource
-from asciichat_tpu.utils.errors import AsciiChatError, ErrorCode
-from asciichat_tpu.utils import ui
-from asciichat_tpu.utils.keyboard import KeyboardReader
+from asciichat_tpu_torch.models.session import DisplaySink, Pacer
 from asciichat_tpu_torch.ops import filters
 from asciichat_tpu_torch.render.pipeline import AsciiRenderer
+from asciichat_tpu_torch.render.types import TerminalCapabilities
+from asciichat_tpu_torch.runtime.double_buffer import FrameQueue
+from asciichat_tpu_torch.runtime.framesource import FrameSource
+from asciichat_tpu_torch.utils import ui
+from asciichat_tpu_torch.utils.errors import AsciiChatError, ErrorCode
+from asciichat_tpu_torch.utils.keyboard import KeyboardReader
 
 MATRIX_NOT_PORTED = ("--matrix needs the digital-rain overlay (ops/rain.py), which "
                      "is not ported yet: ROADMAP.md Queue 1, item 9")

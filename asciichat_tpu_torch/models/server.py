@@ -20,11 +20,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from asciichat_tpu.render import palette as pal
-from asciichat_tpu.render.types import RenderMode, TerminalCapabilities
 from asciichat_tpu_torch.ops import audio as audio_ops
 from asciichat_tpu_torch.ops import cells, compositor, filters, pixel
+from asciichat_tpu_torch.render import palette as pal
 from asciichat_tpu_torch.render.pipeline import RenderPlan, plan_render
+from asciichat_tpu_torch.render.types import RenderMode, TerminalCapabilities
 from asciichat_tpu_torch.runtime.device import check_tensor, default_device, stream_handle
 from asciichat_tpu_torch.runtime.kernel_build import Kernel
 from asciichat_tpu_torch.utils import convert

@@ -25,11 +25,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from asciichat_tpu.render import palette as pal
-from asciichat_tpu.utils.aspect import resize_indices
 from asciichat_tpu_torch.ops import pixel, resize
+from asciichat_tpu_torch.render import palette as pal
 from asciichat_tpu_torch.runtime.device import check_tensor, stream_handle
 from asciichat_tpu_torch.runtime.kernel_build import Kernel
+from asciichat_tpu_torch.utils.aspect import resize_indices
 
 RecordDict = dict[str, torch.Tensor]
 

@@ -21,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from asciichat_tpu.utils.aspect import CHAR_ASPECT, resize_indices
+from asciichat_tpu_torch.utils.aspect import CHAR_ASPECT, resize_indices
 
 PIXELS_PER_CHAR_HEIGHT = 2
 MAX_COMPOSITE_SOURCES = 9  # stream.c:687

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from asciichat_tpu.utils.aspect import resize_indices
+from asciichat_tpu_torch.utils.aspect import resize_indices
 
 # 16-color ANSI palette (lib/video/terminal/ansi.c:442-459)
 ANSI16_RGB = np.array(

@@ -15,10 +15,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from asciichat_tpu.utils.aspect import resize_indices
 from asciichat_tpu_torch.ops import pixel
 from asciichat_tpu_torch.runtime.device import check_tensor, stream_handle
 from asciichat_tpu_torch.runtime.kernel_build import Kernel
+from asciichat_tpu_torch.utils.aspect import resize_indices
 
 RESIZE_KERNEL = Kernel(
     "resize_nn", "ac_resize_nn", "asciichat_tpu_torch/csrc/resize.cu",

@@ -3,7 +3,7 @@
 Counterpart of ``asciichat_tpu/render/pipeline.py``: geometry on the host
 (``oracle.compute_render_geometry``), cell records on the device
 (``ops/cells.render_cells``: K2, or K1 for the half-block RGB modes), then the
-shared native emitter (``asciichat_tpu.render.emitter``) on the host.
+native emitter (``render/emitter.py`` over ``native/emitter.cpp``) on the host.
 """
 
 from __future__ import annotations
@@ -13,11 +13,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from asciichat_tpu.render import emitter
-from asciichat_tpu.render import palette as pal
-from asciichat_tpu.render.oracle import compute_render_geometry
-from asciichat_tpu.render.types import TerminalCapabilities
 from asciichat_tpu_torch.ops import cells
+from asciichat_tpu_torch.render import emitter
+from asciichat_tpu_torch.render import palette as pal
+from asciichat_tpu_torch.render.oracle import compute_render_geometry
+from asciichat_tpu_torch.render.types import TerminalCapabilities
 from asciichat_tpu_torch.runtime.device import default_device
 
 # Geometries whose gather tables a renderer keeps on its device.

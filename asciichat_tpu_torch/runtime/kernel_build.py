@@ -11,13 +11,22 @@ the wrapper raises on a non-zero code. Building against PyTorch's own headers
 The headers that hold the kernels' per-element math (``csrc/cells_math.cuh``
 for the render kernels, ``csrc/mixer_math.cuh`` for the mixer) are also
 compiled by g++ into small CPU libraries (:func:`cells_math_lib`,
-:func:`mixer_math_lib`), following ``asciichat_tpu/runtime/native_build.py``,
-so the tests check that math on a machine with no GPU.
+:func:`mixer_math_lib`), so the tests check that math on a machine with no
+GPU.
+
+The host runtime's C++ (the ANSI emitter, CRC32-C, the audio ring, the
+secretbox and Argon2id primitives, the libavcodec shim) lives in the
+repository root's ``native/``, which this module only reads: :func:`native_lib`
+builds ``native/<name>.cpp`` with g++ into ``build/torch_native/``, under the
+same content hash, so the port never shares a build directory with another
+package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -25,12 +34,18 @@ import shutil
 import subprocess
 from pathlib import Path
 
-CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
+REPO_DIR = Path(__file__).resolve().parent.parent.parent
+CSRC_DIR = REPO_DIR / "asciichat_tpu_torch" / "csrc"
+BUILD_DIR = REPO_DIR / "build" / "torch_kernels"
+NATIVE_DIR = REPO_DIR / "native"
+NATIVE_BUILD_DIR = REPO_DIR / "build" / "torch_native"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+NATIVE_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+# libraries a native source links against; they follow the source
+NATIVE_LINK = {"avshim": ("-lavcodec", "-lavformat", "-lavutil", "-lswscale")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,12 +76,13 @@ def _digest(paths: list[Path], flags: tuple[str, ...]) -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(cmd_prefix: list[str], sources: list[Path], out: Path) -> str:
+def _compile(cmd_prefix: list[str], sources: list[Path], out: Path,
+             link: tuple[str, ...] = ()) -> str:
     """Compile to a per-process temporary name, then rename: a concurrent
     loader never sees a half-written library. Returns the compiler's output."""
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = [*cmd_prefix, "-o", str(tmp), *map(str, sources)]
+    cmd = [*cmd_prefix, "-o", str(tmp), *map(str, sources), *link]
     try:
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:
@@ -187,4 +203,63 @@ def mixer_math_lib() -> ctypes.CDLL:
         getattr(lib, name).restype = None
     lib.mm_consts_count.argtypes = []
     lib.mm_consts_count.restype = _I
+    return lib
+
+
+@contextlib.contextmanager
+def _build_lock(out: Path):
+    """One compile of ``out`` at a time, across threads and processes (the
+    server and its clients, parallel test workers); the others wait, then
+    load what it built."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.with_name(f".{out.name}.lock"), "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        yield
+
+
+@functools.lru_cache(maxsize=None)
+def native_lib(name: str) -> ctypes.CDLL:
+    """native/<name>.cpp built with g++ into build/torch_native/ at first use
+    (with ``-march=native`` where the toolchain takes it: CRC32-C uses SSE4.2)."""
+    src = NATIVE_DIR / f"{name}.cpp"
+    link = NATIVE_LINK.get(name, ())
+    out = NATIVE_BUILD_DIR / f"lib{name}-{_digest([src], NATIVE_FLAGS + link)}.so"
+    if not out.exists():
+        with _build_lock(out):
+            if not out.exists():
+                cxx = os.environ.get("CXX", "g++")
+                try:
+                    _compile([cxx, "-march=native", *NATIVE_FLAGS], [src], out, link)
+                except RuntimeError:
+                    _compile([cxx, *NATIVE_FLAGS], [src], out, link)
+    return ctypes.CDLL(str(out))
+
+
+@functools.lru_cache(maxsize=None)
+def emitter_lib() -> ctypes.CDLL:
+    """native/emitter.cpp, the multithreaded ANSI emitter, with its entry
+    points' types set."""
+    lib = native_lib("emitter")
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    c_int = ctypes.c_int
+    c_i64 = ctypes.c_int64
+
+    lib.ac_emit_mono.argtypes = [u8p, c_int, c_int, c_int, u8p, c_int, c_int, u8p, c_i64, i64p, c_int]
+    lib.ac_emit_truecolor_fg.argtypes = [u8p, u8p, c_int, c_int, c_int, u8p, c_int, c_int, u8p, c_i64, i64p, c_int]
+    lib.ac_emit_indexed.argtypes = [u8p, u8p, c_int, c_int, c_int, c_int, u8p, c_int, c_int, u8p, c_i64, i64p, c_int]
+    lib.ac_emit_16_dithered.argtypes = [u8p, u8p, c_int, c_int, c_int, c_int, u8p, u8p, c_int, c_int, u8p, c_i64, i64p, c_int]
+    lib.ac_emit_halfblock_truecolor.argtypes = [u8p, u8p, c_int, c_int, c_int, c_int, c_int, u8p, c_i64, i64p, c_int]
+    lib.ac_emit_halfblock_indexed.argtypes = [u8p, u8p, u8p, c_int, c_int, c_int, c_int, c_int, c_int, u8p, c_i64, i64p, c_int]
+    lib.ac_emit_halfblock_mono.argtypes = [u8p, u8p, c_int, c_int, c_int, c_int, c_int, u8p, c_i64, i64p, c_int]
+    for fn in (
+        lib.ac_emit_mono,
+        lib.ac_emit_truecolor_fg,
+        lib.ac_emit_indexed,
+        lib.ac_emit_16_dithered,
+        lib.ac_emit_halfblock_truecolor,
+        lib.ac_emit_halfblock_indexed,
+        lib.ac_emit_halfblock_mono,
+    ):
+        fn.restype = None
     return lib

@@ -25,7 +25,8 @@ so the exit code is non-zero:
 9. K4 (the exclude-self mixer) against the plain ``mixer_process_reference``
    over 200 consecutive ticks at 9 sources x 480 samples with the state
    carried (bursts, dropped sources, one all-silent tick), then without
-   exclude-self and at 1, 2 and 32 sources;
+   exclude-self, at 1, 2 and 32 sources, and at 4096-sample ticks (which
+   span several of the kernel's shared-memory windows at 32 sources);
 10. ``ServerTick.step`` (K3 + K4) for 100 ticks: 9 sources of 800x600 ->
     203x64 half-block truecolor, 9 receivers, records against the plain
     tick and mixes within the tolerance; K3's and K4's launches in it > 0;
@@ -36,11 +37,26 @@ so the exit code is non-zero:
     failed device tick, and K3's and K4's launches in the server process
     (counted by their wrappers from the process's start), with the video
     and audio ticks' latency;
-12. the kernels, their launches on each path and their times against the
-    plain versions, as one JSON line. A kernel's ``launches`` is the count
-    on its user-facing path: the mirror (phase 6) for K1 and K2, the live
-    server (phase 11) for K3 and K4; ``launches_by_path`` holds every
-    path's own count.
+12. the kernels, their launches on each path, their times against the
+    plain versions and their bounds, as one JSON line. A kernel's
+    ``launches`` is the count on its user-facing path: the mirror (phase 6)
+    for K1 and K2, the live server (phase 11) for K3 and K4;
+    ``launches_by_path`` holds every path's own count. ``ms`` is the eager
+    time (CUDA events around back-to-back wrapper calls), ``device_ms`` the
+    device-only time (calls replayed from one CUDA graph). ``bound_ms`` is
+    the larger of the bytes the function must move (each input byte read
+    once, each output byte written once; for a gather, only the pixels it
+    samples) over 3.35 TB/s and its operations over 67 TFLOP/s (the float32
+    peak outside the tensor cores, taken for the integer ops too), both the
+    H100 SXM's published peaks; ``bound_by`` says which; ``roofline_share``
+    is ``bound_ms / device_ms``. For the gathers K1-K3,
+    ``sector_floor_ms`` counts every distinct 32-byte sector that the
+    sampled pixels touch in place of their bytes: the memory system moves
+    whole sectors, so no gather of these pixels reads less. ``library_ms``
+    is one PyTorch call that computes the same function (K1:
+    ``frames[:, sy[:, None], sx]``; ``library_device_ms`` its device-only
+    time), timed here and used nowhere in the port; no single PyTorch call
+    computes K2, K3 or K4, so theirs is null.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Records are compared exactly (tolerance 0: every record is uint8); the
@@ -63,17 +79,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from asciichat_tpu.net import packet as pkt
-from asciichat_tpu.net import protocol as proto
-from asciichat_tpu.net.transport import connect_tcp
-from asciichat_tpu.render import emitter, oracle, palette
-from asciichat_tpu.render.types import ColorLevel, RenderMode, TerminalCapabilities
-from asciichat_tpu.runtime.framesource import TestPatternSource
 from asciichat_tpu_torch.models import server
+from asciichat_tpu_torch.net import packet as pkt
+from asciichat_tpu_torch.net import protocol as proto
+from asciichat_tpu_torch.net.transport import connect_tcp
 from asciichat_tpu_torch.ops import audio, cells, compositor, filters, pixel, resize
+from asciichat_tpu_torch.render import emitter, oracle, palette
 from asciichat_tpu_torch.render.pipeline import AsciiRenderer, plan_render
+from asciichat_tpu_torch.render.types import ColorLevel, RenderMode, TerminalCapabilities
 from asciichat_tpu_torch.runtime import kernel_build
 from asciichat_tpu_torch.runtime.device import require_cuda
+from asciichat_tpu_torch.runtime.framesource import TestPatternSource
 
 ROOT = Path(__file__).resolve().parent
 
@@ -99,6 +115,10 @@ LIVE_WAIT_S = 120.0
 LIVE_WINDOW_S = 5.0  # steady serving before the inspector is read
 LIVE_UPLINK_FPS = 15  # each source's new pictures per second in that window
 LIVE_AUDIO_HZ = 100  # each client's AUDIO_BATCHes (480 samples) per second
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+SECTOR = 32  # bytes: the unit in which the card reads device memory
 
 KERNELS = (resize.RESIZE_KERNEL, cells.CELL_RECORDS_KERNEL,
            server.RENDER_GROUP_KERNEL, audio.MIXER_KERNEL)
@@ -202,6 +222,40 @@ def timing(label: str, kernel_ms: float, plain_ms: float, device_ms=None) -> Non
         f"[{CARD}]")
 
 
+def nbytes(*tensors) -> int:
+    """Bytes of tensors or record dicts, each counted once."""
+    total = 0
+    for t in tensors:
+        total += nbytes(*t.values()) if isinstance(t, dict) else t.numel() * t.element_size()
+    return total
+
+
+def sampled_bytes(offsets: torch.Tensor) -> tuple[int, int]:
+    """(distinct bytes, distinct 32-byte sectors x 32) of a gather that reads
+    the 3 bytes at each of ``offsets`` (byte offsets of pixels)."""
+    each = (offsets.reshape(-1, 1) + torch.arange(3, device=offsets.device)).reshape(-1)
+    return (int(torch.unique(each).numel()),
+            SECTOR * int(torch.unique(each // SECTOR).numel()))
+
+
+def frame_offsets(b: int, h: int, w: int, tables: resize.IndexTables) -> torch.Tensor:
+    """Byte offsets of the pixels a resize of a uint8 [b, h, w, 3] batch samples."""
+    sy, sx = tables.sy.long(), tables.sx.long()
+    rows = torch.arange(b, device=sy.device)[:, None] * h + sy[None, :]
+    return ((rows[:, :, None] * w + sx[None, None, :]) * 3).reshape(-1)
+
+
+def work(bytes_in: int, bytes_out: int, ops: float = 0.0, sector_bytes: int = 0,
+         tables: int = 0) -> dict:
+    """What a kernel's function must move and compute: bytes read (sampled
+    pixels and tables) and written, its operations, and, for a gather, the
+    bytes of the distinct sectors that its sampled pixels touch."""
+    out = {"bytes": bytes_in + tables + bytes_out, "ops": ops}
+    if sector_bytes:
+        out["sector_bytes"] = sector_bytes + tables + bytes_out
+    return out
+
+
 def phase1_device() -> torch.device:
     global CARD
     dev = require_cuda()
@@ -228,7 +282,7 @@ def phase2_build() -> None:
             say(f"  ptxas {line.strip()}")
 
 
-def phase3_resize(dev, frames: torch.Tensor, errs: list[int]) -> tuple[float, float]:
+def phase3_resize(dev, frames: torch.Tensor, errs: list[int]) -> dict:
     say("phase 3: K1 resize vs plain")
     plan = plan_render(SRC_W, SRC_H, TERM_W, TERM_H, FG_TRUECOLOR)
     dh, dw = plan.dst_h_px, plan.dst_w
@@ -241,18 +295,31 @@ def phase3_resize(dev, frames: torch.Tensor, errs: list[int]) -> tuple[float, fl
         check_exact(f"K1 {src} -> {dst}", resize.resize_nn(f, *dst),
                     pixel.resize_nn(f, *dst), errs)
     tables = resize.resize_tables(SRC_H, SRC_W, dh, dw, dev)
+    sy, sx = tables.sy.long(), tables.sx.long()
+
+    def library():  # one advanced-indexing call; the port never makes it
+        return frames[:, sy[:, None], sx]
+
+    check_exact(f"library frames[:, sy[:, None], sx] B={BATCH}", library(),
+                resize.resize_nn(frames, dh, dw, tables), [])
     k = cuda_ms(lambda: resize.resize_nn(frames, dh, dw, tables))
     p = cuda_ms(lambda: pixel.resize_nn(frames, dh, dw))
     g = graph_ms(lambda: resize.resize_nn(frames, dh, dw, tables))
+    lib, lib_g = cuda_ms(library), graph_ms(library)
     timing(f"K1 1080p B={BATCH} -> {dh}x{dw}", k, p, g)
-    return k, p
+    say(f"  time library frames[:, sy[:, None], sx]: {lib:.4f} ms (device only, "
+        f"CUDA graph: {lib_g:.4f} ms) [{CARD}]")
+    out = BATCH * dh * dw * 3
+    sampled, sectors = sampled_bytes(frame_offsets(BATCH, SRC_H, SRC_W, tables))
+    return dict(ms=k, plain_ms=p, device_ms=g, library_ms=lib, library_device_ms=lib_g,
+                **work(sampled, out, 0.0, sectors, nbytes(tables.sy, tables.sx)))
 
 
 def plain_cells(frames, ramp, dh, dw, mode):
     return cells.records_for_mode(pixel.resize_nn(frames, dh, dw), mode, ramp)
 
 
-def phase4_cells(frames: torch.Tensor, errs: list[int]) -> tuple[float, float]:
+def phase4_cells(frames: torch.Tensor, errs: list[int]) -> dict:
     say("phase 4: render_cells (K2, K1 for half-block RGB) vs plain, 10 modes")
     ramp = cells.ramp_for_palette(palette.DEFAULT_PALETTE)
     f8 = frames[:8]
@@ -278,14 +345,20 @@ def phase4_cells(frames: torch.Tensor, errs: list[int]) -> tuple[float, float]:
     p = cuda_ms(lambda: plain_cells(frames, ramp, plan.dst_h_px, plan.dst_w, plan.mode))
     g = graph_ms(lambda: cells.render_cells(frames, ramp, tables=tables, **args))
     timing(f"K2 {plan.mode} 1080p B={BATCH} -> {plan.dst_h_px}x{plan.dst_w}", k, p, g)
-    return k, p
+    records = cells.render_cells(frames, ramp, tables=tables, **args)
+    sampled, sectors = sampled_bytes(frame_offsets(BATCH, SRC_H, SRC_W, tables.resize))
+    cell_count = BATCH * plan.dst_h_px * plan.dst_w
+    # ops: luma (3 multiplies, 3 adds, a shift) per cell
+    return dict(ms=k, plain_ms=p, device_ms=g, library_ms=None,
+                **work(sampled, nbytes(records), 7.0 * cell_count, sectors,
+                       nbytes(tables.resize.sy, tables.resize.sx)))
 
 
 def group_args(grp: server.RenderGroup) -> tuple:
     return (grp.ramp, grp.tint, grp.fg_on_bg, grp.is_rainbow, grp.filter_on)
 
 
-def phase5_group(dev, stack: torch.Tensor, errs: list[int]) -> tuple[float, float]:
+def phase5_group(dev, stack: torch.Tensor, errs: list[int]) -> dict:
     say("phase 5: K3 render_group vs plain render_compute")
     sizes = [(UPLINK_W, UPLINK_H)] * SERVER_SOURCES
     result = None
@@ -305,10 +378,21 @@ def phase5_group(dev, stack: torch.Tensor, errs: list[int]) -> tuple[float, floa
 
         label = (f"K3 {r.mode} {SERVER_SOURCES}x{UPLINK_W}x{UPLINK_H} -> "
                  f"{r.dst_h_px}px x {r.dst_w}, {len(SERVER_FILTERS)} receivers")
-        check_exact(label, kernel(), plain(), errs)
-        k, p = cuda_ms(kernel), cuda_ms(plain)
-        timing(label, k, p, graph_ms(kernel))
-        result = result or (k, p)
+        records = kernel()
+        check_exact(label, records, plain(), errs)
+        k, p, g = cuda_ms(kernel), cuda_ms(plain), graph_ms(kernel)
+        timing(label, k, p, g)
+        if result is None:  # the live server's half-block truecolor group
+            _, h, w, _ = stack.shape
+            valid = m.k_cidx >= 0
+            offsets = ((m.k_cidx[valid].long() * h + m.k_sy[valid].long()) * w
+                       + m.k_sx[valid].long()) * 3
+            sampled, sectors = sampled_bytes(offsets)
+            params = nbytes(m.k_cidx, m.k_sy, m.k_sx, *group_args(grp)[1:])
+            # ops: colour filter and luma, ~20 integer ops per pixel per receiver
+            ops = 20.0 * nbytes(records) / 3
+            result = dict(ms=k, plain_ms=p, device_ms=g, library_ms=None,
+                          **work(sampled, nbytes(records), ops, sectors, params))
     return result
 
 
@@ -478,9 +562,11 @@ class AudioErr:
         torch.testing.assert_close(got, want, **AUDIO_TOL, msg=lambda m: f"{label}: {m}")
 
 
-def mixer_run(dev, s: int, ticks: int, exclude_self: bool, seed: int, err: AudioErr) -> None:
-    """K4 and the plain mixer over ``ticks`` carried ticks on the card."""
-    samples, active = speech(seed, s, AUDIO_N, ticks)
+def mixer_run(dev, s: int, ticks: int, exclude_self: bool, seed: int, err: AudioErr,
+              n: int = AUDIO_N) -> None:
+    """K4 and the plain mixer over ``ticks`` carried ticks of ``n`` samples
+    on the card."""
+    samples, active = speech(seed, s, n, ticks)
     c = s if exclude_self else 1
     k_state = audio.MixerState.init(s, c, dev).astuple()
     p_state = k_state
@@ -502,7 +588,19 @@ def mixer_run(dev, s: int, ticks: int, exclude_self: bool, seed: int, err: Audio
         k_state = new_k
 
 
-def phase9_mixer(dev, err: AudioErr) -> tuple[float, float]:
+def mixer_work(s: int, n: int, exclude_self: bool = True) -> dict:
+    """K4's bytes (samples and activity in, mixes out, four state vectors
+    in and out) and float ops: per sample of each 256-sample frame, 2 per
+    source for the full mix and 4 per listener for its mix and peak; per
+    output sample ~25 for the compressor gain and the soft clip."""
+    c = s if exclude_self else 1
+    state = 4 * (2 * s + 2 * c)
+    padded = -(-n // audio.MIXER_FRAME_SIZE) * audio.MIXER_FRAME_SIZE
+    ops = padded * (2 * s + 4 * c) + 25 * n * c
+    return work(4 * s * n + s + state, 4 * c * n + state, float(ops))
+
+
+def phase9_mixer(dev, err: AudioErr) -> dict:
     s = SERVER_SOURCES
     say(f"phase 9: K4 mixer vs plain mixer_process_reference, {MIXER_TICKS} ticks "
         f"at {s} x {AUDIO_N}")
@@ -512,6 +610,9 @@ def phase9_mixer(dev, err: AudioErr) -> tuple[float, float]:
     for s_, ex in ((s, False), (1, True), (2, True), (32, True)):
         mixer_run(dev, s_, 40, ex, seed=10 + s_, err=err)
         say(f"  ok  S={s_} exclude_self={ex}, 40 ticks")
+    for s_ in (s, 32):
+        mixer_run(dev, s_, 10, True, seed=50 + s_, err=err, n=4096)
+        say(f"  ok  S={s_} exclude_self=True, 10 ticks of 4096 samples")
     samples, active = speech(1, s, AUDIO_N, 1)
     x = torch.from_numpy(samples[0]).to(dev)
     act = torch.from_numpy(active[0] | True).to(dev)
@@ -520,7 +621,23 @@ def phase9_mixer(dev, err: AudioErr) -> tuple[float, float]:
     pl = cuda_ms(lambda: audio.mixer_process_reference(x, act, state), iters=50)
     g = graph_ms(lambda: audio.mixer_process(x, act, state))
     timing(f"K4 {s} x {AUDIO_N}", k, pl, g)
-    return k, pl
+    return dict(ms=k, plain_ms=pl, device_ms=g, library_ms=None, **mixer_work(s, AUDIO_N))
+
+
+def bounds(t: dict) -> dict:
+    """bound_ms, bound_by, roofline_share and, for a gather, sector_floor_ms
+    of one kernel's measured times and work."""
+    by_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+    by_ops = t["ops"] / FP32_OPS_PER_S * 1e3
+    bound = max(by_bytes, by_ops)
+    out = {"bytes": t["bytes"], "ops": t["ops"], "bound_ms": bound,
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "roofline_share": bound / t["device_ms"]}
+    if "sector_bytes" in t:
+        floor = t["sector_bytes"] / HBM_BYTES_PER_S * 1e3
+        out.update(sector_bytes=t["sector_bytes"], sector_floor_ms=floor,
+                   sector_floor_share=floor / t["device_ms"])
+    return out
 
 
 def reset_launches() -> None:
@@ -811,7 +928,7 @@ def main() -> int:
     missing = [f"{name} on {path}" for path, name in need if not paths[path].get(name)]
     if missing:
         raise AssertionError(f"kernels not launched: {missing}")
-    report = {"kernels": []}
+    report = {"card": CARD, "kernels": []}
     for k in KERNELS:
         entry = {"name": k.name, "route": "cuda", "source": k.source,
                  "replaces": k.replaces, "launches": paths[MAIN_PATH[k.name]][k.name],
@@ -821,7 +938,11 @@ def main() -> int:
             entry.update(max_abs_err=mixer_err.abs, max_rel_err=mixer_err.rel)
         else:
             entry["max_abs_err"] = max(errs[k.name])
-        entry.update(ms=times[k.name][0], plain_ms=times[k.name][1])
+        t = times[k.name]
+        entry.update(ms=t["ms"], plain_ms=t["plain_ms"], device_ms=t["device_ms"],
+                     **bounds(t), library_ms=t["library_ms"])
+        if "library_device_ms" in t:
+            entry["library_device_ms"] = t["library_device_ms"]
         report["kernels"].append(entry)
     say(json.dumps(report))
     say(json.dumps({"ok": True, "device": {

@@ -1,14 +1,24 @@
 // A CPU emulation of the CUDA features that a single-block kernel uses, for
 // running a kernel's source under g++ in the CPU tests: the block's threads
 // are std::threads, __shared__ variables are function statics (one copy,
-// seen by every thread), __syncthreads is a barrier over the block, and the
-// warp collectives exchange through per-warp arrays between two barriers.
-// Launch with EMU_LAUNCH(kernel, args...) in place of kernel<<<1, n>>>(args).
-// It runs the kernel's logic, not its compiled code: the card's compiler
-// and memory model are checked only on the card.
+// seen by every thread), __syncthreads is a barrier over the block (and
+// __syncthreads_or a vote across it), and the warp collectives exchange through per-warp arrays between two barriers.
+// Dynamic shared memory is one buffer per launch (emu_dynamic_smem: the
+// kernel's `extern __shared__` array is rewritten to point at it), and the
+// cp.async pipeline (__pipeline_memcpy_async / _commit / _wait_prior) queues
+// each thread's copies and performs them only when a wait retires their
+// batch, so a read that the kernel does not wait for sees stale data.
+// Launch with EMU_LAUNCH(kernel, threads, smem_bytes, args...) in place of
+// kernel<<<1, threads, smem_bytes, stream>>>(args). It runs the kernel's
+// logic, not its compiled code: the card's compiler and memory model are
+// checked only on the card.
 #pragma once
 
+#include <atomic>
 #include <barrier>
+#include <cmath>
+#include <cstring>
+#include <deque>
 #include <functional>
 #include <memory>
 #include <thread>
@@ -21,6 +31,7 @@
 #define __launch_bounds__(x)
 #define __restrict__
 #define __shared__ static
+#define __align__(n) alignas(n)
 
 struct EmuDim3 {
   int x = 0, y = 0, z = 0;
@@ -30,6 +41,45 @@ inline thread_local EmuDim3 threadIdx;
 using cudaStream_t = void*;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = 0;
+  return cudaSuccess;
+}
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <typename F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+
+inline void* emu_dynamic_smem;  // the launch's dynamic shared memory
+
+// cp.async: a thread's copies wait in its open batch, a commit closes the
+// batch, and __pipeline_wait_prior(n) performs all but the newest n batches.
+struct EmuCopy {
+  void* dst;
+  const void* src;
+  size_t bytes, zfill;
+};
+inline thread_local std::vector<EmuCopy> emu_open_batch;
+inline thread_local std::deque<std::vector<EmuCopy>> emu_batches;
+
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t bytes,
+                                    size_t zfill = 0) {
+  emu_open_batch.push_back({dst, src, bytes, zfill});
+}
+inline void __pipeline_commit() {
+  emu_batches.push_back(std::move(emu_open_batch));
+  emu_open_batch.clear();
+}
+inline void __pipeline_wait_prior(size_t n) {
+  while (emu_batches.size() > n) {
+    for (const EmuCopy& c : emu_batches.front()) {
+      std::memcpy(c.dst, c.src, c.bytes - c.zfill);
+      std::memset(static_cast<char*>(c.dst) + c.bytes - c.zfill, 0, c.zfill);
+    }
+    emu_batches.pop_front();
+  }
+}
 
 constexpr int kEmuMaxWarps = 32;
 inline std::barrier<>* emu_block;
@@ -38,6 +88,19 @@ inline float emu_xchg[kEmuMaxWarps][32];
 inline int emu_bits[kEmuMaxWarps][32];
 
 inline void __syncthreads() { emu_block->arrive_and_wait(); }
+
+// The block's vote: the second barrier holds the reset until every thread
+// has read the result.
+inline std::atomic<int> emu_vote{0};
+inline int __syncthreads_or(int pred) {
+  if (pred) emu_vote.store(1);
+  emu_block->arrive_and_wait();
+  const int any = emu_vote.load();
+  emu_block->arrive_and_wait();
+  if (threadIdx.x == 0) emu_vote.store(0);
+  emu_block->arrive_and_wait();
+  return any;
+}
 
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
@@ -60,8 +123,13 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 
-// Run fn on `threads` threads (a multiple of 32, at most 1024) as one block.
-inline void emu_run(int threads, const std::function<void()>& fn) {
+// Run fn on `threads` threads (a multiple of 32, at most 1024) as one block
+// with `smem_bytes` of dynamic shared memory, which starts as NaNs so that a
+// read of a value never stored shows in the result.
+inline void emu_run(int threads, size_t smem_bytes,
+                    const std::function<void()>& fn) {
+  std::vector<float> smem(smem_bytes / sizeof(float) + 4, NAN);
+  emu_dynamic_smem = smem.data();
   std::barrier<> block(threads);
   emu_block = &block;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
@@ -74,9 +142,11 @@ inline void emu_run(int threads, const std::function<void()>& fn) {
     pool.emplace_back([i, &fn] {
       threadIdx.x = i;
       fn();
+      emu_open_batch.clear();  // copies a thread never waited for
+      emu_batches.clear();
     });
   for (auto& t : pool) t.join();
 }
 
-#define EMU_LAUNCH(kernel, threads, ...) \
-  emu_run(threads, [&] { kernel(__VA_ARGS__); })
+#define EMU_LAUNCH(kernel, threads, smem_bytes, ...) \
+  emu_run(threads, smem_bytes, [&] { kernel(__VA_ARGS__); })

@@ -1,5 +1,7 @@
 """The port never imports JAX: every module of asciichat_tpu_torch and
-chip_smoke.py's imports load with ``jax`` unimportable, and chip_smoke.py
+chip_smoke.py's imports load with ``jax`` unimportable (nor do they import
+the JAX package ``asciichat_tpu``: tests/test_torch_standalone.py), the
+plaintext server needs neither JAX nor ``cryptography``, and chip_smoke.py
 fails without a card or outside a checkout, printing no result."""
 
 import json

@@ -166,6 +166,8 @@ def test_mirror_matrix_not_ported():
     ["discovery"], ["client", "127.0.0.1"], ["discovery-service"], ["bench"],
     ["mirror", "--test-pattern", "--matrix", "--snapshot"],
     ["mirror", "--test-pattern", "--render-file", "out.y4m"],
+    ["server", "--port", "0", "--ws-port", "0"], ["server", "--port", "0", "--mdns"],
+    ["completions", "bash"],
 ])
 def test_unported_modes_exit_nonzero(argv, capsys):
     assert tmain.main(argv) == tmain.NOT_PORTED

@@ -1,0 +1,180 @@
+"""The port stands alone: no module of asciichat_tpu_torch, nor
+chip_smoke.py, imports the JAX package ``asciichat_tpu`` (eagerly or
+lazily), every one of them imports with ``asciichat_tpu``, ``jax`` and
+``jaxlib`` unimportable, and the port's server, started in a process where
+``asciichat_tpu`` cannot be imported, serves a plaintext and an encrypted
+client frames equal to the oracle. The clients and the oracle here are the
+JAX package's: the tests are not the port."""
+
+import ast
+import asyncio
+import os
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from asciichat_tpu.net import packet as pkt
+from asciichat_tpu.net import protocol as proto
+from asciichat_tpu.net.transport import connect_tcp
+from asciichat_tpu.ops import compositor
+from asciichat_tpu.render import oracle
+from asciichat_tpu.render.types import ColorLevel, RenderMode, TerminalCapabilities
+
+from conftest import synthetic_frame
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "asciichat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+BLOCK = ("import sys\n"
+         "for name in ('asciichat_tpu', 'jax', 'jaxlib'):\n"
+         "    sys.modules[name] = None\n")
+
+
+def _jax_package(name: str) -> bool:
+    return name == "asciichat_tpu" or name.startswith("asciichat_tpu.")
+
+
+def _imports_of_the_jax_package(path: Path) -> list[str]:
+    """Every import of ``asciichat_tpu`` in ``path``, at any depth, and every
+    ``importlib.import_module`` / ``__import__`` of it by a literal name."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif isinstance(node, ast.Call) and node.args:
+            fn = node.func
+            called = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            arg = node.args[0]
+            if called in ("import_module", "__import__") and isinstance(arg, ast.Constant):
+                names = [str(arg.value)]
+        found += [f"{path.relative_to(REPO)}:{node.lineno} {n}" for n in names
+                  if _jax_package(n)]
+    return found
+
+
+def test_no_source_of_the_port_imports_the_jax_package():
+    assert len(PORT_FILES) > 40
+    found = [hit for path in PORT_FILES for hit in _imports_of_the_jax_package(path)]
+    assert not found, found
+
+
+IMPORT_ALL = BLOCK + """
+import importlib, pkgutil
+import asciichat_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(asciichat_tpu_torch.__path__,
+                                               "asciichat_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and m.split(".")[0] in ("asciichat_tpu", "jax", "jaxlib")]
+assert not loaded, loaded
+print(len(names))
+"""
+
+
+def _env() -> dict:
+    env = dict(os.environ, ASCIICHAT_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_every_module_imports_without_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split()[-1]) >= 50  # every module was walked
+
+
+# -- the server with asciichat_tpu blocked ------------------------------------
+
+HB_TRUECOLOR = TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.HALF_BLOCK)
+TERM_W, TERM_H = 40, 12
+WAIT_S = 90.0
+PASSWORD = "sekrit"
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _start_server(port: int, *extra: str) -> subprocess.Popen:
+    code = BLOCK + (
+        "from asciichat_tpu_torch.apps.main import main\n"
+        f"sys.exit(main(['server', '--host', '127.0.0.1', '--port', '{port}', "
+        f"'--log-level', 'WARNING', *{list(extra)!r}]))\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    end = time.monotonic() + WAIT_S
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"server exited {proc.returncode}: "
+                                 f"{proc.stderr.read().decode(errors='replace')[-3000:]}")
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return proc
+        except OSError:
+            if time.monotonic() > end:
+                proc.kill()
+                raise AssertionError("the server never accepted a connection") from None
+            time.sleep(0.1)
+
+
+async def _session(port: int, encrypted: bool, frame: np.ndarray, want: bytes) -> None:
+    raw = await connect_tcp("127.0.0.1", port)
+    t = raw
+    if encrypted:
+        from asciichat_tpu.net.crypto import CryptoContext
+        from asciichat_tpu.net.handshake import SecureChannel, client_handshake
+
+        ctx = CryptoContext()
+        ctx.set_password(PASSWORD)
+        assert await client_handshake(raw, ctx, PASSWORD)
+        t = SecureChannel(raw, ctx, initiator=True)
+    try:
+        wire = proto.WireCapabilities(caps=HB_TRUECOLOR, width=TERM_W, height=TERM_H,
+                                      capabilities_mask=0x1)  # frames uncompressed
+        await t.send(pkt.PacketType.CLIENT_CAPABILITIES, wire.pack())
+        await t.send(pkt.PacketType.IMAGE_FRAME,
+                     pkt.pack_image_frame(frame.tobytes(), frame.shape[1], frame.shape[0]))
+        loop = asyncio.get_running_loop()
+        end = loop.time() + WAIT_S
+        while True:
+            ptype, payload = await asyncio.wait_for(t.recv(), max(0.0, end - loop.time()))
+            if (ptype == pkt.PacketType.ASCII_FRAME
+                    and pkt.unpack_ascii_frame(payload)[0] == want):
+                return
+    finally:
+        await raw.close()
+
+
+@pytest.mark.parametrize("encrypted", [False, True], ids=["plaintext", "encrypted"])
+def test_server_serves_without_the_jax_package(encrypted):
+    frame = synthetic_frame(48, 64, seed=21)
+    plan = compositor.plan_composite([(64, 48)], TERM_W, TERM_H)
+    want = oracle.ascii_convert_with_capabilities(
+        compositor.composite_reference(frame[None], plan), TERM_W, 2 * TERM_H, HB_TRUECOLOR)
+    port = _free_port()
+    proc = _start_server(port, *(("--password", PASSWORD) if encrypted else ()))
+    try:
+        asyncio.run(asyncio.wait_for(_session(port, encrypted, frame, want), 2 * WAIT_S))
+        assert proc.poll() is None, "the server exited during the session"
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        err = proc.stderr.read().decode(errors="replace")
+        proc.stderr.close()
+    assert "refused" not in err and "Traceback" not in err, err[-3000:]
