@@ -10,8 +10,9 @@ order and under the same names; only the device seam differs:
 - the source stack is a pinned ``torch.uint8`` pool; a fresh layout uploads
   all of it, after that only the rows whose frame advanced are copied
   (``_upload_stack``);
-- the video tick renders through the port's ``RenderGroup`` (K3 on a CUDA
-  device) and fetches through each group's pinned buffers;
+- the video tick renders every geometry group with one
+  ``models/server.render_groups`` call (one K3 launch on a CUDA device) into
+  the server's ``RecordArena`` and fetches them all with one copy;
 - the audio tick mixes with the port's ``mixer_process`` (K4 on a CUDA
   device) on a CUDA stream of its own;
 - a video tick whose device work fails is logged at ERROR, counted
@@ -52,7 +53,8 @@ import time
 import numpy as np
 import torch
 
-from asciichat_tpu_torch.models.server import RENDER_GROUP_KERNEL, RenderGroup
+from asciichat_tpu_torch.models.server import (RENDER_GROUP_KERNEL, RecordArena, RenderGroup,
+                                               render_groups)
 from asciichat_tpu_torch.net import packet as pkt
 from asciichat_tpu_torch.net import protocol as proto
 from asciichat_tpu_torch.net.transport import Transport, serve_tcp
@@ -84,9 +86,9 @@ AUDIO_TICK = 480 / 48000  # 10 ms audio tick (render.c:42)
 # MAX_CLIENTS fills: an unauthenticated slot-exhaustion DoS.
 PING_PROBE_S = 20.0
 CLIENT_TIMEOUT_S = 60.0
-# RenderGroup LRU bound: groups hold device buffers (comp maps, filter
-# params) and pinned fetch buffers; geometry churn past this evicts the
-# least-recently-served groups.
+# RenderGroup LRU bound: groups hold device buffers (comp maps and K3's
+# word maps); geometry churn past this evicts the least-recently-served
+# groups.
 GROUP_CACHE_MAX = 16
 # Periodic gc+malloc_trim cadence in the video loop (see the maintenance
 # block there).
@@ -193,6 +195,7 @@ class AsciiChatServer:
         self._stack_seqs: dict[int, int] = {}  # client id -> copied frame seq
         self._stack_hwm = (0, 0, 0)  # (n_src, hmax, wmax) shape watermark
         self._dev_stack = None  # device-resident stack
+        self._arena = RecordArena(self.device)  # every group's records, each tick
         self._stack_event = None  # CUDA event: the last upload's reads of the pool
         # the audio tick's own CUDA stream: a blocking video fetch on the
         # render thread's stream never delays a mix
@@ -656,12 +659,12 @@ class AsciiChatServer:
 
     def _render_tick_device(self, receivers, sizes, stack,
                             changed=None, fresh_layout=True) -> None:
-        """Production path: ONE render_group launch per geometry group
-        (models/server.RenderGroup — composite gather + per-receiver filter +
-        resize + records in one kernel, K3, on a CUDA device), host emission
-        batched per group. Counterpart of src/server/stream.c:958 +
-        render.c:340 where the per-client fan-out is threads; here it is the
-        batch dimension."""
+        """Production path: ONE render of every geometry group
+        (models/server.render_groups — composite gather + per-receiver
+        filter + resize + records of all groups in one K3 launch on a CUDA
+        device), one fetch, host emission batched per group. Counterpart of
+        src/server/stream.c:958 + render.c:340 where the per-client fan-out
+        is threads; here it is the batch dimension."""
         from asciichat_tpu_torch.render import emitter
 
         # desired_fps pacing BEFORE grouping/rendering: a group whose
@@ -689,15 +692,12 @@ class AsciiChatServer:
         to_send: list[tuple[ClientState, bytes]] = []
         frames_rendered = 0
         compute_count = 0
-        # Dispatch phase: resolve every group and LAUNCH its device step
-        # before the first D2H fetch blocks. CUDA launches are asynchronous,
-        # so all G launches queue up and group k+1's device compute overlaps
-        # group k's fetch + emit + pack (a merged single launch would pad
-        # every group to the max geometry and waste device work; pipelined
-        # launches get the overlap without the padding). The "convert"
-        # tracer section therefore measures launch only; the device-compute
-        # wait lands in the first blocked "fetch".
-        staged: list[tuple] = []  # (grp, members, member_slot, n_uniq, records)
+        # Dispatch phase: resolve every group, then render them all with one
+        # call (on a CUDA device one K3 launch over every group's tiles,
+        # each group's records in the server's arena). The "convert" tracer
+        # section therefore measures the launch only; the device-compute
+        # wait lands in the one blocked "fetch".
+        staged: list[tuple] = []  # (grp, members, member_slot, n_uniq)
         for key, members in groups.items():
             wc0 = members[0].wire_caps
             # identical receivers (same filter within the same geometry
@@ -721,7 +721,8 @@ class AsciiChatServer:
                     # (live resizes, churn joins) must neither wipe the hot
                     # serving groups nor ratchet dead groups' device buffers.
                     # An evicted group still staged this tick stays alive
-                    # via its `staged` reference until drained.
+                    # via its `staged` reference until drained; its records
+                    # live in the server's arena, not in the group.
                     stale = sorted(self._group_cache,
                                    key=lambda k: self._group_last_used.get(k, 0))
                     for k in stale[: len(stale) - GROUP_CACHE_MAX + 1]:
@@ -737,14 +738,14 @@ class AsciiChatServer:
             elif grp.filter_names != unique_filters:
                 grp.set_filters(unique_filters)
             self._group_last_used[cache_key] = self._tick_seq
-            with self.tick_tracer.section("convert"):
-                records = grp.step(frames_dev, now)
-            staged.append((grp, members, member_slot, len(unique_filters),
-                           records))
-        # Drain phase: fetch (blocks on that group's compute), emit, pack.
-        for grp, members, member_slot, n_uniq, records in staged:
-            with self.tick_tracer.section("fetch"):
-                host = grp.fetch(records)  # the group's pinned buffers
+            staged.append((grp, members, member_slot, len(unique_filters)))
+        with self.tick_tracer.section("convert"):
+            records = render_groups(frames_dev, [s[0] for s in staged], now,
+                                    self._arena)
+        with self.tick_tracer.section("fetch"):
+            hosts = self._arena.fetch(records)  # one copy, the arena's pinned buffer
+        # Drain phase: emit and pack group by group.
+        for (grp, members, member_slot, n_uniq), host in zip(staged, hosts):
             with self.tick_tracer.section("emit"):
                 views = emitter.emit_frames(
                     host, grp.render.mode, grp.palette,

@@ -31,6 +31,10 @@ enum Family : int {
   FAM_HB_Q16 = 6,     // halfblock_16:                          fg, bg, transparent
 };
 
+AC_HD constexpr bool is_halfblock(int fam) {
+  return fam == FAM_HB_RGB || fam == FAM_HB_Q256 || fam == FAM_HB_Q16;
+}
+
 // 179 = 70% of 255, the rainbow filter's gray pre-boost (color_filter.c:301).
 constexpr int kRainbowMinBrightness = 179;
 
@@ -92,13 +96,17 @@ AC_HD int hb_bot_row(int r, int hpx) {
   return y < hpx ? y : hpx - 1;
 }
 
-// Per-receiver colour filter (ops/filters.py:110-128): gray (77,150,29)>>8
-// with no rounding constant, the rainbow pre-boost, then colourise on the
-// background (fg_on_bg) or on black. A disabled receiver passes through.
-AC_HD void color_filter(int& r, int& g, int& b, int tr, int tg, int tb,
-                        bool fg_on_bg, bool rainbow, bool enabled) {
+// The colour filter's gray (ops/filters.py:110): (77,150,29)>>8 with no
+// rounding constant. It does not depend on the receiver.
+AC_HD int filter_gray(int r, int g, int b) { return (77 * r + 150 * g + 29 * b) >> 8; }
+
+// The rest of the per-receiver colour filter (ops/filters.py:111-128) for a
+// pixel whose filter_gray is `gray`: the rainbow pre-boost, then colourise
+// on the background (fg_on_bg) or on black. A disabled receiver passes
+// through.
+AC_HD void colorize(int& r, int& g, int& b, int gray, int tr, int tg, int tb,
+                    bool fg_on_bg, bool rainbow, bool enabled) {
   if (!enabled) return;
-  int gray = (77 * r + 150 * g + 29 * b) >> 8;
   if (rainbow)
     gray = kRainbowMinBrightness + (gray * (255 - kRainbowMinBrightness)) / 255;
   if (fg_on_bg) {
@@ -110,6 +118,12 @@ AC_HD void color_filter(int& r, int& g, int& b, int tr, int tg, int tb,
     g = (tg * gray) / 255;
     b = (tb * gray) / 255;
   }
+}
+
+// Per-receiver colour filter (ops/filters.py:110-128).
+AC_HD void color_filter(int& r, int& g, int& b, int tr, int tg, int tb,
+                        bool fg_on_bg, bool rainbow, bool enabled) {
+  colorize(r, g, b, filter_gray(r, g, b), tr, tg, tb, fg_on_bg, rainbow, enabled);
 }
 
 }  // namespace ac

@@ -1,8 +1,8 @@
-// The per-mode cell-record epilogue shared by K2 (cell_records.cu) and K3
-// (render_group.cu). The kernel body is templated on the record family and
-// on the source addressing: K2 reads a frame batch through resize tables, K3
-// reads a source stack through composed composite+resize maps and filters
-// per receiver. Everything after the pixel load is this one body.
+// K2's (cell_records.cu) per-mode cell-record body. It is templated on the
+// record family and on the source addressing (K2 reads a frame batch
+// through resize tables); everything after the pixel load is this one body.
+// K3 (render_group.cu) has a body of its own, with the same per-element
+// math from cells_math.cuh.
 //
 // One thread per output cell, cells in row-major order, so neighbouring
 // threads write neighbouring record bytes. A grid-stride loop covers any
@@ -42,10 +42,6 @@ __device__ __forceinline__ void store_rgb(uint8_t* dst, int64_t cell,
   dst[cell * 3 + 0] = (uint8_t)p.r;
   dst[cell * 3 + 1] = (uint8_t)p.g;
   dst[cell * 3 + 2] = (uint8_t)p.b;
-}
-
-__host__ __device__ constexpr bool is_halfblock(int fam) {
-  return fam == FAM_HB_RGB || fam == FAM_HB_Q256 || fam == FAM_HB_Q16;
 }
 
 // Src::load(b, y, x) returns the (filtered) pixel at pixel row y, column x of

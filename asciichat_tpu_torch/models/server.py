@@ -3,19 +3,24 @@ exclude-self audio mixes out.
 
 Counterpart of ``asciichat_tpu/models/server.py`` (``plan_tick``,
 ``render_compute``, ``tick_compute``, single-device ``RenderGroup`` and
-``ServerTick``). Each video tick the server hands a :class:`RenderGroup` the
-source stack; on a CUDA device :func:`render_group` launches K3
-(``csrc/render_group.cu``), which gathers, filters, resizes and writes the
-records in one pass; on the CPU it runs the plain version,
-:func:`render_compute`. The audio half is ``ops/audio.mixer_process``: K4
-(``csrc/mixer.cu``) on a CUDA device, the plain loop on the CPU.
-:func:`tick_compute` and :class:`ServerTick` put both halves into one step.
-The mesh path is not ported yet (ROADMAP.md).
+``ServerTick``). Each video tick the server hands :func:`render_groups` the
+source stack and every geometry group it serves. On a CUDA device that is
+one launch of K3 (``csrc/render_group.cu``) for all the groups: it gathers,
+filters, resizes and writes every group's records into one device arena
+(:class:`RecordArena`), which one copy fetches to the host. The receivers'
+filters and the palette ramps stay on the host and ride by value in the
+launch. On the CPU each group runs the plain version, :func:`render_compute`.
+The audio half is ``ops/audio.mixer_process``: K4 (``csrc/mixer.cu``) on a
+CUDA device, the plain loop on the CPU. :func:`tick_compute` and
+:class:`ServerTick` put both halves into one step. The mesh path is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import numpy as np
 import torch
@@ -30,7 +35,7 @@ from asciichat_tpu_torch.runtime.kernel_build import Kernel
 from asciichat_tpu_torch.utils import convert
 
 RENDER_GROUP_KERNEL = Kernel(
-    "render_group", "ac_render_group", "asciichat_tpu_torch/csrc/render_group.cu",
+    "render_group", "ac_render_groups", "asciichat_tpu_torch/csrc/render_group.cu",
     "asciichat_tpu/models/server.py:58")
 
 
@@ -87,66 +92,325 @@ def render_compute(
     return cells.records_for_mode(resized, mode, ramp)
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
+# K3's limits; csrc/render_group.cu keeps the same numbers.
+K3_MAX_GROUPS = 16  # descriptors per launch
+K3_MAX_RECEIVERS = 16  # receivers per descriptor
+K3_MAX_TILE_CELLS = 256  # cells per tile (CTA)
+K3_DESC_WORDS = 25  # int64 words per descriptor in the host table
+K3_MIN_TILE_CELLS = 16
+# flag bits of a receiver's filter as K3 takes it
+RECV_ENABLED, RECV_FG_ON_BG, RECV_RAINBOW = 1, 2, 4
+ARENA_ALIGN = 16  # bytes: where each record starts in a RecordArena
+MAP_NAMES = ("cidx", "src_y", "src_x", "comp_mask")  # compositor.host_maps order
+
+
+@dataclasses.dataclass(eq=False)
 class GroupMaps:
-    """A layout's gather maps on a device: the composite maps of the plain
-    path ([Hc, Wc], host_maps order) and K3's composed maps ([dst_h_px,
-    dst_w], cidx -1 = background), with the extents the maps index."""
+    """A layout's gather maps: the composite maps of the plain path ([Hc,
+    Wc], host_maps order) on the group's device, and the composed maps
+    ([dst_h_px, dst_w], cidx -1 = background) on the host, from which
+    :meth:`words` makes K3's one-word map for a stack shape and keeps the
+    last one."""
 
     cidx: torch.Tensor
     src_y: torch.Tensor
     src_x: torch.Tensor
     comp_mask: torch.Tensor
-    k_cidx: torch.Tensor
-    k_sy: torch.Tensor
-    k_sx: torch.Tensor
+    k_cidx: np.ndarray
+    k_sy: np.ndarray
+    k_sx: np.ndarray
     n_src: int  # sources the maps reference (max cidx + 1)
     min_h: int  # rows and columns the source stack must have
     min_w: int
+    _words: tuple | None = dataclasses.field(default=None, repr=False)  # (shape, map)
+
+    @classmethod
+    def from_host(cls, arrays: dict[str, np.ndarray], dst_h: int, dst_w: int,
+                  device: torch.device | str) -> "GroupMaps":
+        """The maps of host arrays named as MAP_NAMES (compositor.host_maps
+        order) for a [dst_h, dst_w] render, the composite maps on ``device``."""
+        maps = [arrays[k] for k in MAP_NAMES]
+        t = convert.to_torch(dict(zip(MAP_NAMES, maps)), device)
+        live = maps[3].reshape(maps[0].shape)
+        return cls(*t.values(), *compositor.compose_maps(*maps, dst_h, dst_w),
+                   n_src=int(maps[0][live].max(initial=-1)) + 1,
+                   min_h=int(maps[1][live].max(initial=-1)) + 1,
+                   min_w=int(maps[2][live].max(initial=-1)) + 1)
+
+    def words(self, stack_shape: tuple[int, ...]) -> torch.Tensor:
+        """K3's map for a uint8 [S, H, W, 3] source stack: int32 [dst_h_px,
+        dst_w] on the maps' device (compositor.pixel_words), made and
+        uploaded when the shape differs from the last call's."""
+        shape = tuple(stack_shape[:3])
+        if self._words is None or self._words[0] != shape:
+            s, h, w = shape
+            if s < self.n_src or h < self.min_h or w < self.min_w:
+                raise ValueError(f"source stack {tuple(stack_shape)} is smaller than the "
+                                 f"layout's {self.n_src} x {self.min_h} x {self.min_w}")
+            host = compositor.pixel_words(self.k_cidx, self.k_sy, self.k_sx, shape)
+            self._words = (shape, torch.from_numpy(host).to(self.cidx.device))
+        return self._words[1]
+
+
+@dataclasses.dataclass(eq=False)
+class K3Rows:
+    """What a :class:`K3Job` keeps between launches: the descriptor rows of
+    the last stack shape and records, and the word map and records that the
+    rows point into, held here so that neither is freed while a row may be
+    launched (the maps keep only their last shape's word map)."""
+
+    shape: tuple[int, int, int]
+    words: torch.Tensor | None  # None for a group without receivers
+    records: cells.RecordDict | None = None
+    sm_count: int = 0
+    rows: list[np.ndarray] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass(eq=False)
+class K3Job:
+    """One group's part of a K3 launch: its maps, record family and
+    geometry, and the host values that ride by value in the launch's
+    parameters (the palette ramp, each receiver's filter)."""
+
+    maps: GroupMaps
+    family: int
+    hpx: int
+    width: int
+    ramp: np.ndarray  # uint8 [64]
+    receivers: np.ndarray  # uint8 [C, 4] (receiver_words)
+    kept: K3Rows | None = dataclasses.field(default=None, repr=False)
+
+    def descriptors(self, stack_shape: tuple[int, ...], records: cells.RecordDict,
+                    sm_count: int) -> list[np.ndarray]:
+        """The job's rows of a K3 descriptor table (int64 [K3_DESC_WORDS]
+        each, the layout of ac_render_groups in csrc/render_group.cu) for a
+        render from a stack of ``stack_shape`` into ``records``: one row per
+        K3_MAX_RECEIVERS receivers, none for an empty group. The rows are
+        kept while the stack shape and the records hold (:class:`K3Rows`);
+        only the receivers' filters are rewritten, since a rainbow tint
+        moves."""
+        shape = tuple(stack_shape[:3])
+        kept = self.kept
+        if kept is None or kept.shape != shape:
+            words = self.maps.words(shape) if len(self.receivers) else None
+            kept = self.kept = K3Rows(shape, words)
+        if kept.records is not records or kept.sm_count != sm_count:
+            kept.rows = self._new_rows(kept.words, records, sm_count)
+            kept.records, kept.sm_count = records, sm_count
+        rows = kept.rows
+        for i, row in enumerate(rows):
+            c0 = i * K3_MAX_RECEIVERS
+            part = self.receivers[c0:c0 + K3_MAX_RECEIVERS]
+            row.view(np.uint8)[72:72 + part.size] = part.reshape(-1)
+        return rows
+
+    def _new_rows(self, words, records, sm_count) -> list[np.ndarray]:
+        c = len(self.receivers)
+        if not (c and self.hpx and self.width):
+            return []
+        cell_rows = (self.hpx + 1) // 2 if self.family in cells.HALFBLOCK_FAMILIES else self.hpx
+        tile_w = tile_width(cell_rows, self.width, sm_count)
+        outs = [(t.data_ptr(), t.stride(0)) for t in records.values()]
+        rows = []
+        for c0 in range(0, c, K3_MAX_RECEIVERS):
+            row = np.zeros(K3_DESC_WORDS, np.int64)
+            ptrs = [p + c0 * stride for p, stride in outs] + [0] * (3 - len(outs))
+            row[:9] = (words.data_ptr(), *ptrs, self.hpx, self.width, tile_w, self.family,
+                       min(c - c0, K3_MAX_RECEIVERS))
+            row.view(np.uint8)[136:200] = self.ramp
+            rows.append(row)
+        return rows
+
+
+def receiver_words(tint: np.ndarray, fg_on_bg: np.ndarray, is_rainbow: np.ndarray,
+                   enabled: np.ndarray) -> np.ndarray:
+    """The filter vectors (filters.filter_params) as K3 takes them: uint8
+    [C, 4], each receiver's tint r, g, b and its flags (RECV_*)."""
+    tint = np.asarray(tint)
+    if tint.size and (tint.min() < 0 or tint.max() > 255):
+        raise ValueError("tint: every component must lie in 0..255")
+    words = np.empty((tint.shape[0], 4), np.uint8)
+    words[:, :3] = tint
+    words[:, 3] = (np.asarray(enabled) * RECV_ENABLED | np.asarray(fg_on_bg) * RECV_FG_ON_BG
+                   | np.asarray(is_rainbow) * RECV_RAINBOW)
+    return words
+
+
+def tile_width(rows: int, width: int, sm_count: int) -> int:
+    """Cells per K3 tile for a group of ``rows`` cell rows: a row, or a
+    chunk of it small enough that the group alone has about one tile per
+    SM (one tile a row measured slower on the card, tools/k3_variants.py),
+    at least K3_MIN_TILE_CELLS and at most K3_MAX_TILE_CELLS."""
+    chunks = max(1, -(-sm_count // max(rows, 1)))
+    return min(K3_MAX_TILE_CELLS, max(K3_MIN_TILE_CELLS, -(-width // chunks)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+class RecordArena:
+    """The records of a render's groups in one device buffer and, on a CUDA
+    device once :meth:`fetch` is first called, a pinned host buffer of the
+    same layout, so that one copy fetches them all. Both are reused while
+    the layout (each group's family, receivers and geometry) is unchanged,
+    and grow when a layout needs more bytes. Records are views into them:
+    consume them before the next render through the same arena, and the
+    arrays of :meth:`fetch` before the next fetch."""
+
+    def __init__(self, device: torch.device | str):
+        self.device = torch.device(device)
+        self._dev: torch.Tensor | None = None
+        self._host: torch.Tensor | None = None
+        self._layout: tuple = ()
+        self._spans: list[list[tuple[str, tuple[int, ...], int]]] = []
+        self._views: list[cells.RecordDict] = []
+        self._host_views: list[dict[str, np.ndarray]] | None = None
+        self._used = 0
+
+    def layout(self, groups: list[tuple[int, int, int, int]]) -> list[cells.RecordDict]:
+        """Record views for groups given as (family, receivers, hpx, width)."""
+        key = tuple(groups)
+        if key == self._layout and self._dev is not None:
+            return self._views
+        spans, used = [], 0
+        for family, c, hpx, width in key:
+            rows = (hpx + 1) // 2 if family in cells.HALFBLOCK_FAMILIES else hpx
+            span = []
+            for name, trailing in cells.FAMILY_RECORDS[family]:
+                shape = (c, rows, width, *trailing)
+                span.append((name, shape, used))
+                used += -(-math.prod(shape) // ARENA_ALIGN) * ARENA_ALIGN
+            spans.append(span)
+        if self._dev is None or self._dev.numel() < used:
+            self._dev = torch.empty(used, dtype=torch.uint8, device=self.device)
+        self._spans, self._used, self._layout = spans, used, key
+        self._views = self._views_of(self._dev)
+        self._host_views = None
+        return self._views
+
+    def _views_of(self, buf: torch.Tensor) -> list[cells.RecordDict]:
+        return [{name: buf[o:o + math.prod(shape)].view(shape) for name, shape, o in span}
+                for span in self._spans]
+
+    def fetch(self, records: list[cells.RecordDict]) -> list[dict[str, np.ndarray]]:
+        """``records`` on the host. On a CUDA device they must be this
+        arena's last layout: one copy of its bytes into the pinned buffer,
+        one wait for the stream, and the arrays are views of that buffer.
+        On the CPU, the records as numpy."""
+        if self.device.type != "cuda":
+            return [cells.records_to_numpy(r) for r in records]
+        if len(records) != len(self._views) or any(
+                a is not b for a, b in zip(records, self._views)):
+            raise ValueError("the records are not this arena's last layout")
+        if self._host is None or self._host.numel() < self._dev.numel():
+            self._host = torch.empty(self._dev.numel(), dtype=torch.uint8, pin_memory=True)
+            self._host_views = None
+        if self._host_views is None:
+            self._host_views = [{k: v.numpy() for k, v in g.items()}
+                                for g in self._views_of(self._host)]
+        if self._used:
+            self._host[:self._used].copy_(self._dev[:self._used], non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+        return self._host_views
+
+
+def k3_tables(frames: torch.Tensor, jobs: list[K3Job], records: list[cells.RecordDict],
+              sm_count: int) -> list[np.ndarray]:
+    """K3's host descriptor tables for ``jobs`` rendering from ``frames``
+    into ``records``: int64 [n, K3_DESC_WORDS], at most K3_MAX_GROUPS rows
+    each, one launch per table (K3Job.descriptors)."""
+    rows = [row for job, rec in zip(jobs, records)
+            for row in job.descriptors(frames.shape, rec, sm_count)]
+    if len(rows) == 1:
+        return [rows[0][None]]
+    return [np.stack(rows[i:i + K3_MAX_GROUPS]) for i in range(0, len(rows), K3_MAX_GROUPS)]
+
+
+def _render_k3(frames: torch.Tensor, jobs: list[K3Job],
+               arena: RecordArena) -> list[cells.RecordDict]:
+    """Every job's records through K3 into ``arena``: one launch per
+    K3_MAX_GROUPS descriptors."""
+    dev = frames.device
+    check_tensor(frames, "frames", torch.uint8, (None, None, None, 3), dev)
+    if arena.device != dev:
+        raise ValueError(f"record arena on {arena.device}, frames on {dev}")
+    records = arena.layout([(j.family, len(j.receivers), j.hpx, j.width) for j in jobs])
+    tables = k3_tables(frames, jobs, records, _sm_count(dev.index))
+    if tables:
+        with torch.cuda.device(dev):
+            stream = stream_handle(dev)
+            for table in tables:
+                RENDER_GROUP_KERNEL(frames.data_ptr(), table.ctypes.data, len(table), stream)
+    return records
 
 
 def render_group(frames: torch.Tensor, ramp: torch.Tensor, tint: torch.Tensor,
                  fg_on_bg: torch.Tensor, is_rainbow: torch.Tensor,
                  filter_on: torch.Tensor, maps: GroupMaps, *, mode: str,
                  dst_h: int, dst_w: int) -> cells.RecordDict:
-    """The render of one group for one tick: K3 on a CUDA device, the plain
-    :func:`render_compute` on the CPU."""
+    """The render of one group from its arrays, the array-level mirror of
+    the JAX ``render_compute`` call: K3 on a CUDA device, where the ramp and
+    the filter vectors are host tensors that ride by value in the launch,
+    the plain :func:`render_compute` on the CPU. Each call makes its launch
+    job and its records afresh; :func:`render_groups` keeps both from tick
+    to tick."""
     if frames.device.type == "cpu":
         return render_compute(frames, ramp, tint, fg_on_bg, is_rainbow, filter_on,
                               maps.cidx, maps.src_y, maps.src_x, maps.comp_mask,
                               mode=mode, dst_h=dst_h, dst_w=dst_w)
-    dev = frames.device
-    family = cells.mode_family(mode)
-    check_tensor(frames, "frames", torch.uint8, (None, None, None, 3), dev)
-    s, h, w, _ = frames.shape
-    if s < maps.n_src or h < maps.min_h or w < maps.min_w:
-        raise ValueError(f"source stack {tuple(frames.shape)} is smaller than the "
-                         f"layout's {maps.n_src} x {maps.min_h} x {maps.min_w}")
-    for name, t in (("k_cidx", maps.k_cidx), ("k_sy", maps.k_sy), ("k_sx", maps.k_sx)):
-        check_tensor(t, name, torch.int32, (dst_h, dst_w), dev)
+    host = torch.device("cpu")
     c = tint.shape[0]
-    check_tensor(tint, "tint", torch.int32, (c, 3), dev)
+    check_tensor(tint, "tint", torch.int32, (c, 3), host)
     for name, t in (("fg_on_bg", fg_on_bg), ("is_rainbow", is_rainbow),
                     ("filter_on", filter_on)):
-        check_tensor(t, name, torch.bool, (c,), dev)
+        check_tensor(t, name, torch.bool, (c,), host)
     cells.check_ramp(ramp)
-    records = cells.allocate_records(family, c, dst_h, dst_w, dev)
-    if c and dst_h and dst_w:
-        with torch.cuda.device(dev):
-            RENDER_GROUP_KERNEL(
-                family, frames.data_ptr(), h, w, maps.k_cidx.data_ptr(),
-                maps.k_sy.data_ptr(), maps.k_sx.data_ptr(), dst_h, dst_w,
-                tint.data_ptr(), fg_on_bg.data_ptr(), is_rainbow.data_ptr(),
-                filter_on.data_ptr(), c, ramp.data_ptr(),
-                *cells.record_pointers(records), stream_handle(dev))
+    if maps.k_cidx.shape != (dst_h, dst_w):
+        raise ValueError(f"maps are for {maps.k_cidx.shape}, not ({dst_h}, {dst_w})")
+    job = K3Job(maps, cells.mode_family(mode), dst_h, dst_w, ramp.numpy(),
+                receiver_words(tint.numpy(), fg_on_bg.numpy(), is_rainbow.numpy(),
+                               filter_on.numpy()))
+    return _render_k3(frames, [job], RecordArena(frames.device))[0]
+
+
+def render_groups(frames: torch.Tensor, groups: list["RenderGroup"], time_s: float = 0.0,
+                  arena: RecordArena | None = None) -> list[cells.RecordDict]:
+    """One tick's render of every group from one source stack, one record
+    dict per group. Rainbow tints follow ``time_s`` (on the host). On a
+    CUDA device: one K3 launch for all the groups (one per K3_MAX_GROUPS
+    descriptors), the records in ``arena`` (a fresh one when None), to be
+    fetched with its :meth:`RecordArena.fetch`. On the CPU: the plain
+    :func:`render_compute` of each group, and ``arena`` is not used."""
+    rgb = None
+    for g in groups:
+        if g.device != frames.device:
+            raise ValueError(f"group on {g.device}, frames on {frames.device}")
+        if g.has_rainbow:
+            rgb = rgb or filters.rainbow_color(time_s)
+            g._set_rainbow_tint(rgb)
+    if frames.device.type == "cpu":
+        records = [render_compute(frames, g.ramp, g.tint, g.fg_on_bg, g.is_rainbow,
+                                  g.filter_on, g.maps.cidx, g.maps.src_y, g.maps.src_x,
+                                  g.maps.comp_mask, mode=g.render.mode,
+                                  dst_h=g.render.dst_h_px, dst_w=g.render.dst_w)
+                   for g in groups]
+    else:
+        records = _render_k3(frames, [g.job for g in groups],
+                             arena if arena is not None else RecordArena(frames.device))
+    for g in groups:
+        g.ticks += 1
     return records
 
 
 class RenderGroup:
     """Live-server render group: the receivers sharing one (caps, size,
-    palette) geometry, rendered from the shared source stack by one
-    :func:`render_group` call per tick (the group is the batch dimension).
-    Single device; rebuilt when the source layout or the geometry changes."""
+    palette) geometry, rendered from the shared source stack (the receivers
+    are the batch dimension) by :func:`render_groups` beside the tick's
+    other groups, or alone by :meth:`step`. The ramp and the filter vectors
+    stay on the host. Single device; rebuilt when the source layout or the
+    geometry changes."""
 
     def __init__(
         self,
@@ -176,8 +440,9 @@ class RenderGroup:
         self.render = plan.render
         self.palette = palette
         self.device = torch.device(device) if device is not None else default_device()
-        # pinned buffers for the record fetch, reused tick after tick
-        self.staging = cells.HostStaging() if self.device.type == "cuda" else None
+        self.family = cells.mode_family(self.render.mode)
+        # the records of step(), reused tick after tick
+        self.arena = RecordArena(self.device)
         cidx, src_y, src_x, comp_mask = compositor.host_maps(plan.composite)
         self.load_state({"ramp": pal.char_index_ramp_array(palette), "cidx": cidx,
                          "src_y": src_y, "src_x": src_x, "comp_mask": comp_mask})
@@ -188,26 +453,33 @@ class RenderGroup:
         self.ticks = 0
 
     def load_state(self, arrays: dict[str, np.ndarray]) -> None:
-        """Place host state on the group's device: any of the ramp, the
-        filter vectors (tint, fg_on_bg, is_rainbow, filter_on) and the
-        composite maps (cidx, src_y, src_x, comp_mask), under those names."""
-        t = convert.to_torch(arrays, self.device)
+        """Place state: any of the ramp and the filter vectors (tint,
+        fg_on_bg, is_rainbow, filter_on), which stay on the host, and the
+        composite maps (cidx, src_y, src_x, comp_mask), which go to the
+        group's device, under those names."""
+        t = convert.to_torch({k: v for k, v in arrays.items() if k not in MAP_NAMES},
+                             self.device)
         if "ramp" in t:
             self.ramp = t["ramp"]
         for name in ("tint", "fg_on_bg", "is_rainbow", "filter_on"):
             if name in t:
                 setattr(self, name, t[name])
         if "cidx" in arrays:
-            h, w = self.render.dst_h_px, self.render.dst_w
-            maps = [arrays[k] for k in ("cidx", "src_y", "src_x", "comp_mask")]
-            k_cidx, k_sy, k_sx = compositor.compose_maps(*maps, h, w)
-            live = maps[3].reshape(maps[0].shape)
-            k = convert.to_torch({"c": k_cidx, "y": k_sy, "x": k_sx}, self.device)
-            self.maps = GroupMaps(
-                t["cidx"], t["src_y"], t["src_x"], t["comp_mask"], k["c"], k["y"], k["x"],
-                n_src=int(maps[0][live].max(initial=-1)) + 1,
-                min_h=int(maps[1][live].max(initial=-1)) + 1,
-                min_w=int(maps[2][live].max(initial=-1)) + 1)
+            self.maps = GroupMaps.from_host(arrays, self.render.dst_h_px, self.render.dst_w,
+                                            self.device)
+        self._job: K3Job | None = None  # rebuilt from the new state
+        self._rainbow_rows: list[int] | None = None
+
+    @property
+    def job(self) -> K3Job:
+        """The group's part of a K3 launch, rebuilt after a change of state."""
+        if self._job is None:
+            cells.check_ramp(self.ramp)
+            self._job = K3Job(self.maps, self.family, self.render.dst_h_px, self.render.dst_w,
+                              self.ramp.numpy(),
+                              receiver_words(self.tint.numpy(), self.fg_on_bg.numpy(),
+                                             self.is_rainbow.numpy(), self.filter_on.numpy()))
+        return self._job
 
     def set_filters(self, names: list[str], time_s: float = 0.0) -> None:
         """Per-receiver filter params are data. Rainbow tints are
@@ -220,28 +492,31 @@ class RenderGroup:
         self.load_state({"tint": tint, "fg_on_bg": fg_on_bg,
                          "is_rainbow": is_rainbow, "filter_on": enabled})
 
-    def _refresh_rainbow_tint(self, time_s: float) -> None:
-        """Only `tint` depends on time (color_filter.c:169): re-upload it alone."""
-        tint, _, _, _ = filters.filter_params(self.filter_names, time_s)
-        self.load_state({"tint": tint})
+    def _set_rainbow_tint(self, rgb: tuple[int, int, int]) -> None:
+        """Only `tint` depends on time (color_filter.c:169): rewrite the
+        rainbow receivers' tint in place on the host, where K3 takes it by
+        value."""
+        if self._rainbow_rows is None:
+            self._rainbow_rows = np.flatnonzero(self.is_rainbow.numpy()).tolist()
+            self._tint_host = self.tint.numpy()
+        receivers = None if self._job is None else self._job.receivers
+        for i in self._rainbow_rows:  # rows one by one: a group has few
+            self._tint_host[i] = rgb
+            if receivers is not None:
+                receivers[i, :3] = rgb
 
     def step(self, frames: torch.Tensor, time_s: float = 0.0) -> cells.RecordDict:
         """frames uint8 [S, Hmax, Wmax, 3] on the group's device -> records
-        for the group's receivers."""
-        if self.has_rainbow:
-            self._refresh_rainbow_tint(time_s)
-        records = render_group(
-            frames, self.ramp, self.tint, self.fg_on_bg, self.is_rainbow,
-            self.filter_on, self.maps, mode=self.render.mode,
-            dst_h=self.render.dst_h_px, dst_w=self.render.dst_w)
-        self.ticks += 1
-        return records
+        for the group's receivers: :func:`render_groups` of this group
+        alone, through the group's own arena (so the records are reused by
+        the next step)."""
+        return render_groups(frames, [self], time_s, self.arena)[0]
 
     def fetch(self, records: cells.RecordDict) -> dict[str, np.ndarray]:
-        """The records of :meth:`step` on the host; through the group's
-        pinned buffers on a CUDA device, so consume them before the next
-        fetch."""
-        return cells.records_to_numpy(records, self.staging)
+        """The records of the last :meth:`step` on the host: through the
+        arena's pinned buffer on a CUDA device, so consume them before the
+        next fetch."""
+        return self.arena.fetch([records])[0]
 
 
 def tick_compute(
@@ -260,11 +535,13 @@ def tick_compute(
     dst_h: int,
     dst_w: int,
 ):
-    """The full tick (asciichat_tpu/models/server.py:94-125): the render of
-    :func:`render_group` and the exclude-self mixes of
+    """The full tick from its arrays (asciichat_tpu/models/server.py:94-125):
+    the render of :func:`render_group` and the exclude-self mixes of
     ``audio_ops.mixer_process``, so K3 + K4 on a CUDA device and the plain
     ``render_compute`` + ``mixer_process_reference`` on the CPU. The
-    composite maps come as the layout's :class:`GroupMaps`."""
+    composite maps come as the layout's :class:`GroupMaps`. The same two
+    halves as :meth:`ServerTick.step`, which keeps its group's launch job
+    and records from tick to tick."""
     records = render_group(frames, ramp, tint, fg_on_bg, is_rainbow, filter_on, maps,
                            mode=mode, dst_h=dst_h, dst_w=dst_w)
     mixes, mixer_state = audio_ops.mixer_process(audio, active, mixer_state)
@@ -309,12 +586,10 @@ class ServerTick:
     def step(self, frames: torch.Tensor, audio: torch.Tensor, active: torch.Tensor,
              time_s: float = 0.0) -> tuple[cells.RecordDict, torch.Tensor]:
         """frames uint8 [C, H, W, 3], audio float32 [C, N], active bool [C],
-        all on the tick's device -> (records, mixes [C, N])."""
-        if self.group.has_rainbow:
-            # only tint is time-dependent (color_filter.c:169)
-            self.group._refresh_rainbow_tint(time_s)
-        render = self.plan.render
-        records, mixes, self.mixer_state = tick_compute(
-            frames, audio, active, self.mixer_state, *self.consts,
-            mode=render.mode, dst_h=render.dst_h_px, dst_w=render.dst_w)
+        all on the tick's device -> (records, mixes [C, N]). On a CUDA
+        device the records are the group's arena, reused by the next step."""
+        # tick_compute's two halves, the render through the group's kept
+        # K3 job and arena (RenderGroup.step refreshes the rainbow tint)
+        records = self.group.step(frames, time_s)
+        mixes, self.mixer_state = audio_ops.mixer_process(audio, active, self.mixer_state)
         return records, mixes

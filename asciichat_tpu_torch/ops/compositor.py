@@ -9,9 +9,10 @@ original. Semantics ground truth (src/server/stream.c):
   composite clipping, max 9 sources (stream.c:687-773)
 - per-cell resize:  fixed-point 16.16 nearest neighbour (image_resize)
 
-:func:`compose_maps` folds the renderer's resize into the composite maps, so
-K3 (``csrc/render_group.cu``) reads each output pixel straight from the
-source stack.
+:func:`compose_maps` folds the renderer's resize into the composite maps, and
+:func:`pixel_words` turns them into one word per output pixel for a given
+source stack, so K3 (``csrc/render_group.cu``) reads each output pixel
+straight from the stack.
 """
 
 from __future__ import annotations
@@ -160,6 +161,20 @@ def compose_maps(cidx: np.ndarray, src_y: np.ndarray, src_x: np.ndarray,
     return (np.where(keep, cidx[ry, rx], -1).astype(np.int32),
             np.ascontiguousarray(src_y[ry, rx], np.int32),
             np.ascontiguousarray(src_x[ry, rx], np.int32))
+
+
+def pixel_words(k_cidx: np.ndarray, k_sy: np.ndarray, k_sx: np.ndarray,
+                stack_shape: tuple[int, ...]) -> np.ndarray:
+    """The composed maps of :func:`compose_maps` as one int32 word per
+    output pixel for a uint8 [S, H, W, 3] source stack: the byte offset of
+    the pixel it reads, or -1 for background. Raises where the stack's
+    bytes do not fit an int32 offset."""
+    s, h, w = stack_shape[:3]
+    if s * h * w * 3 > np.iinfo(np.int32).max:
+        raise ValueError(f"source stack {tuple(stack_shape)}: {s * h * w * 3} bytes, "
+                         "more than an int32 offset reaches")
+    offsets = ((k_cidx.astype(np.int64) * h + k_sy) * w + k_sx) * 3
+    return np.where(k_cidx >= 0, offsets, -1).astype(np.int32)
 
 
 def composite_gather(frames: torch.Tensor, cidx: torch.Tensor, src_y: torch.Tensor,

@@ -18,6 +18,9 @@ the server's render; :func:`apply_color_filter` is its plain version.
 
 from __future__ import annotations
 
+import math
+import struct
+
 import numpy as np
 import torch
 
@@ -41,41 +44,55 @@ FILTER_NAMES = list(FILTER_REGISTRY)
 RAINBOW_MIN_BRIGHTNESS = 179  # 70% of 255 (color_filter.c:301)
 
 
+_F32 = struct.Struct("<f")
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to the nearest float32 (ties to even), as a Python float."""
+    return _F32.unpack(_F32.pack(x))[0]
+
+
+_LUM = tuple(_f32(c) for c in (0.2126, 0.7152, 0.0722))  # float32 luminance weights
+
+
 def rainbow_color(time_s: float) -> tuple[int, int, int]:
     """HSV sweep over 3.5 s + min-luminance 120 boost (color_filter.c:169-243),
-    evaluated in float32 like the C ground truth (fmodf / float arithmetic)."""
-    f32 = np.float32
-    phase = f32(np.fmod(f32(time_s), f32(3.5))) / f32(3.5)
-    h = f32(phase * f32(360.0) / f32(60.0))
-    i = int(np.floor(h))
-    f = f32(h - f32(i))
-    q, t = f32(1.0) - f, f
+    evaluated in float32 like the C ground truth (fmodf / float arithmetic).
+    Each step runs in double and is rounded to float32, which gives the
+    float32 result exactly: a sum, difference, product or quotient of two
+    float32 values is correctly rounded that way, and fmod and floor are
+    exact. (Python floats in place of numpy float32 scalars: the server
+    takes this every tick.)"""
+    phase = _f32(_f32(math.fmod(_f32(time_s), 3.5)) / 3.5)
+    h = _f32(_f32(phase * 360.0) / 60.0)
+    i = math.floor(h)
+    f = _f32(h - i)
+    q, t = _f32(1.0 - f), f
     # C `i % 6` truncates toward zero: a negative time gives a negative
     # remainder, which falls to the switch's `default: red`
     # (color_filter.c:220-225)
     seg = i - int(i / 6) * 6
-    c255, chalf = f32(255.0), f32(0.5)
     if seg == 0:
-        r, g, b = 255, int(t * c255 + chalf), 0
+        r, g, b = 255, int(_f32(_f32(t * 255.0) + 0.5)), 0
     elif seg == 1:
-        r, g, b = int(q * c255 + chalf), 255, 0
+        r, g, b = int(_f32(_f32(q * 255.0) + 0.5)), 255, 0
     elif seg == 2:
-        r, g, b = 0, 255, int(t * c255 + chalf)
+        r, g, b = 0, 255, int(_f32(_f32(t * 255.0) + 0.5))
     elif seg == 3:
-        r, g, b = 0, int(q * c255 + chalf), 255
+        r, g, b = 0, int(_f32(_f32(q * 255.0) + 0.5)), 255
     elif seg == 4:
-        r, g, b = int(t * c255 + chalf), 0, 255
+        r, g, b = int(_f32(_f32(t * 255.0) + 0.5)), 0, 255
     elif seg == 5:
-        r, g, b = 255, 0, int(q * c255 + chalf)
+        r, g, b = 255, 0, int(_f32(_f32(q * 255.0) + 0.5))
     else:  # negative segment: the C default case
         r, g, b = 255, 0, 0
     # min-luminance boost in float32, rounding at every step like the C
-    lum = f32(0.2126) * f32(r) + f32(0.7152) * f32(g) + f32(0.0722) * f32(b)
-    if lum < f32(120.0):
-        boost = (f32(120.0) - lum) / f32(3.0)
-        r = int(min(f32(255.0), f32(r) + boost))
-        g = int(min(f32(255.0), f32(g) + boost))
-        b = int(min(f32(255.0), f32(b) + boost))
+    lum = _f32(_f32(_f32(_LUM[0] * r) + _f32(_LUM[1] * g)) + _f32(_LUM[2] * b))
+    if lum < 120.0:
+        boost = _f32(_f32(120.0 - lum) / 3.0)
+        r = int(min(255.0, _f32(r + boost)))
+        g = int(min(255.0, _f32(g + boost)))
+        b = int(min(255.0, _f32(b + boost)))
     return r, g, b
 
 

@@ -57,8 +57,7 @@ ENTRY_POINTS: dict[str, list] = {
     "ac_resize_nn": [_P, _I64, _I64, _I64, _P, _I, _P, _I, _P, _P],
     "ac_cell_records": [_I, _P, _I64, _I64, _I64, _P, _I, _P, _I, _P,
                         _P, _P, _P, _P],
-    "ac_render_group": [_I, _P, _I64, _I64, _P, _P, _P, _I, _I, _P, _P, _P,
-                        _P, _I64, _P, _P, _P, _P, _P],
+    "ac_render_groups": [_P, _P, _I, _P],
     "ac_mixer": [_P, _P, _I, _I64, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                  _P, _P],
 }

@@ -30,9 +30,9 @@ GROUP_STATE: dict[str, np.dtype] = {
     "comp_mask": np.dtype(bool),
 }
 
-# Arrays that stay on the host whatever the device: the ramp rides by value
-# in the kernels' parameters.
-HOST_ARRAYS = frozenset({"ramp"})
+# Arrays that stay on the host whatever the device: the ramp and the filter
+# vectors ride by value in the kernels' parameters.
+HOST_ARRAYS = frozenset({"ramp", "tint", "fg_on_bg", "is_rainbow", "filter_on"})
 
 
 def group_arrays(group) -> dict[str, np.ndarray]:

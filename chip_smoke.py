@@ -14,12 +14,19 @@ so the exit code is non-zero:
    1080p -> 57x203 geometry and at odd shapes;
 4. ``render_cells`` (K2; K1 for the two half-block RGB modes) against the
    plain ``records_for_mode`` for all 10 modes, bit-exact;
-5. K3 (server render) against the plain ``render_compute`` at the server's
-   geometry: 9 sources of 800x600 -> 203x64, per-receiver filters;
+5. K3 (server render, ``render_groups`` of one group) against the plain
+   ``render_compute`` at the server's geometry: 9 sources of 800x600 ->
+   203x64, per-receiver filters;
+5b. three geometry groups (203x64 half-block truecolor with the server's
+   filters, 160x48 256-colour with all 13 filters, 80x24 16-colour
+   half-block) rendered by one K3 launch per tick for 20 ticks, bit-exact
+   against the plain version and, for two ticks, byte-exact against the
+   oracle, with one launch per tick; timed against three single-group
+   calls, device only, eager and with the fetch;
 6. mirror: ``AsciiRenderer.convert_batch`` on 128 frames of 1080p, byte-exact
    against the oracle, and the mirror CLI's ``--snapshot`` in a subprocess;
-7. server: ``RenderGroup.step`` for 100 ticks, every receiver's bytes against
-   the oracle;
+7. server: ``RenderGroup.step`` and ``fetch`` for 100 ticks, every
+   receiver's bytes against the oracle;
 8. the launch counts of phase 6 (K1, K2) and phase 7 (K3), each path's
    own, from a reset just before it (each must be > 0);
 9. K4 (the exclude-self mixer) against the plain ``mixer_process_reference``
@@ -43,7 +50,8 @@ so the exit code is non-zero:
     for K1 and K2, the live server (phase 11) for K3 and K4;
     ``launches_by_path`` holds every path's own count. ``ms`` is the eager
     time (CUDA events around back-to-back wrapper calls), ``device_ms`` the
-    device-only time (calls replayed from one CUDA graph). ``bound_ms`` is
+    device-only time (calls replayed from one CUDA graph); K3's entry adds
+    phase 5b's ``three_groups``. ``bound_ms`` is
     the larger of the bytes the function must move (each input byte read
     once, each output byte written once; for a gather, only the pixels it
     samples) over 3.35 TB/s and its operations over 67 TFLOP/s (the float32
@@ -106,6 +114,13 @@ ODD_RESIZES = [((48, 64), (12, 40)), ((37, 53), (20, 31)), ((16, 16), (40, 80)),
 FG_TRUECOLOR = TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.FOREGROUND)
 HB_TRUECOLOR = TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.HALF_BLOCK)
 FG_256 = TerminalCapabilities(ColorLevel.COLOR_256, RenderMode.FOREGROUND)
+HB_16 = TerminalCapabilities(ColorLevel.COLOR_16, RenderMode.HALF_BLOCK)
+# phase 5b's geometry groups: (term_w, term_h, caps, receivers' filters)
+THREE_GROUPS = [(TERM_W, TERM_H, HB_TRUECOLOR, SERVER_FILTERS),
+                (160, 48, FG_256, filters.FILTER_NAMES),
+                (80, 24, HB_16, ["white", "rainbow", "black"])]
+GROUP_TICKS = 20
+ORACLE_TICKS = 2
 
 MIXER_TICKS = 200
 AUDIO_N = audio.AUDIO_FRAME_SAMPLES  # 480 samples: one 10 ms tick
@@ -354,46 +369,149 @@ def phase4_cells(frames: torch.Tensor, errs: list[int]) -> dict:
                        nbytes(tables.resize.sy, tables.resize.sx)))
 
 
-def group_args(grp: server.RenderGroup) -> tuple:
-    return (grp.ramp, grp.tint, grp.fg_on_bg, grp.is_rainbow, grp.filter_on)
+def device_params(grp: server.RenderGroup, dev) -> list[torch.Tensor]:
+    """The group's host filter vectors, on the card."""
+    return [t.to(dev) for t in (grp.tint, grp.fg_on_bg, grp.is_rainbow, grp.filter_on)]
+
+
+def plain_group(grp: server.RenderGroup, stack: torch.Tensor, params=None) -> dict:
+    """The plain render of ``grp`` on the card, with its filter vectors as
+    they stand (or ``params``, those vectors already on the card)."""
+    m, r = grp.maps, grp.render
+    if params is None:
+        params = device_params(grp, stack.device)
+    return server.render_compute(stack, grp.ramp, *params, m.cidx, m.src_y, m.src_x,
+                                 m.comp_mask, mode=r.mode, dst_h=r.dst_h_px, dst_w=r.dst_w)
 
 
 def phase5_group(dev, stack: torch.Tensor, errs: list[int]) -> dict:
-    say("phase 5: K3 render_group vs plain render_compute")
+    say("phase 5: K3 render_groups vs plain render_compute")
     sizes = [(UPLINK_W, UPLINK_H)] * SERVER_SOURCES
     result = None
     for caps in (HB_TRUECOLOR, FG_256):
         grp = server.RenderGroup(sizes, TERM_W, TERM_H, caps, SERVER_FILTERS,
                                  device=dev)
-        grp.set_filters(SERVER_FILTERS, time_s=1.25)
-        m, r = grp.maps, grp.render
-        geo = dict(mode=r.mode, dst_h=r.dst_h_px, dst_w=r.dst_w)
+        arena = server.RecordArena(dev)
+        r = grp.render
 
         def kernel():
-            return server.render_group(stack, *group_args(grp), m, **geo)
-
-        def plain():
-            return server.render_compute(stack, *group_args(grp), m.cidx, m.src_y,
-                                         m.src_x, m.comp_mask, **geo)
+            return server.render_groups(stack, [grp], 1.25, arena)[0]
 
         label = (f"K3 {r.mode} {SERVER_SOURCES}x{UPLINK_W}x{UPLINK_H} -> "
                  f"{r.dst_h_px}px x {r.dst_w}, {len(SERVER_FILTERS)} receivers")
-        records = kernel()
-        check_exact(label, records, plain(), errs)
-        k, p, g = cuda_ms(kernel), cuda_ms(plain), graph_ms(kernel)
+        records = kernel()  # the rainbow tint at 1.25 s
+        params = device_params(grp, dev)
+        want = plain_group(grp, stack, params)
+        check_exact(label, records, want, errs)
+        # the array-level call, which makes its launch job and records afresh
+        check_exact(f"{label}, render_group", server.render_group(
+            stack, grp.ramp, grp.tint, grp.fg_on_bg, grp.is_rainbow, grp.filter_on, grp.maps,
+            mode=r.mode, dst_h=r.dst_h_px, dst_w=r.dst_w), want, errs)
+        k = cuda_ms(kernel)
+        p = cuda_ms(lambda: plain_group(grp, stack, params))
+        g = graph_ms(kernel)
         timing(label, k, p, g)
         if result is None:  # the live server's half-block truecolor group
-            _, h, w, _ = stack.shape
-            valid = m.k_cidx >= 0
-            offsets = ((m.k_cidx[valid].long() * h + m.k_sy[valid].long()) * w
-                       + m.k_sx[valid].long()) * 3
-            sampled, sectors = sampled_bytes(offsets)
-            params = nbytes(m.k_cidx, m.k_sy, m.k_sx, *group_args(grp)[1:])
+            words = grp.maps.words(stack.shape)
+            sampled, sectors = sampled_bytes(words[words >= 0].long())
             # ops: colour filter and luma, ~20 integer ops per pixel per receiver
             ops = 20.0 * nbytes(records) / 3
             result = dict(ms=k, plain_ms=p, device_ms=g, library_ms=None,
-                          **work(sampled, nbytes(records), ops, sectors, params))
+                          **work(sampled, nbytes(records), ops, sectors,
+                                 4 * r.dst_h_px * r.dst_w))  # one map word per pixel
     return result
+
+
+def group_bytes(g: server.RenderGroup, geometry: tuple, host: dict,
+                composite: np.ndarray, time_s: float) -> None:
+    """Every receiver's emitted frame of ``host`` (g's fetched records)
+    against the oracle applied to the filtered composite; ``geometry`` is
+    the group's (term_w, term_h, caps, filters)."""
+    term_w, term_h, caps, names = geometry
+    r = g.render
+    outs = emitter.emit_frames(host, r.mode, g.palette, pad_w=r.pad_w, pad_h=r.pad_h)
+    rows = 2 * term_h if caps.render_mode == RenderMode.HALF_BLOCK else term_h
+    for c, name in enumerate(names):
+        want = oracle.ascii_convert_with_capabilities(
+            filters.apply_color_filter_reference(composite, name, time_s), term_w, rows, caps)
+        if outs[c] != want:
+            raise AssertionError(f"{r.mode} receiver {c} ({name}) differs from the oracle")
+
+
+def phase5b_three_groups(dev, stack: torch.Tensor, errs: list[int]) -> dict:
+    say(f"phase 5b: {len(THREE_GROUPS)} geometry groups in one K3 launch per tick, "
+        f"{GROUP_TICKS} ticks")
+    sizes = [(UPLINK_W, UPLINK_H)] * SERVER_SOURCES
+    groups = [server.RenderGroup(sizes, w, h, caps, names, device=dev)
+              for w, h, caps, names in THREE_GROUPS]
+    host_stack = stack.cpu().numpy()
+    composites = [compositor.composite_reference(host_stack,
+                                                 compositor.plan_composite(sizes, w, h))
+                  for w, h, _, _ in THREE_GROUPS]
+    arena = server.RecordArena(dev)
+    reset_launches()
+    for t in range(GROUP_TICKS):
+        time_s = 100.0 + t / 60
+        records = server.render_groups(stack, groups, time_s, arena)
+        torch.cuda.synchronize()
+        for g, rec in zip(groups, records):
+            err = max_abs_err(rec, plain_group(g, stack))
+            errs.append(err)
+            if err:
+                raise AssertionError(f"tick {t} {g.render.mode}: max abs err {err}")
+        if t < ORACLE_TICKS:
+            for g, geometry, host, comp in zip(groups, THREE_GROUPS, arena.fetch(records),
+                                               composites):
+                group_bytes(g, geometry, host, comp, time_s)
+    launches = read_launches()[server.RENDER_GROUP_KERNEL.name]
+    if launches != GROUP_TICKS:
+        raise AssertionError(f"{launches} K3 launches over {GROUP_TICKS} ticks, "
+                             "expected one a tick")
+    shapes = ", ".join(f"{g.render.mode} {g.render.dst_h_px}px x {g.render.dst_w} x "
+                       f"{len(g.filter_names)}" for g in groups)
+    say(f"  ok  {GROUP_TICKS} ticks of {shapes}: bit-exact, one K3 launch a tick; "
+        f"{ORACLE_TICKS} ticks byte-identical to the oracle")
+
+    def one():
+        return server.render_groups(stack, groups, 100.0, arena)
+
+    def separate():
+        return [g.step(stack, 100.0) for g in groups]
+
+    def one_fetched():
+        arena.fetch(one())
+
+    def separate_fetched():
+        for g in groups:
+            g.fetch(g.step(stack, 100.0))
+
+    out: dict[str, dict[str, list[float]]] = {"one": {}, "separate": {}}
+    for name in ("one", "separate", "separate", "one"):  # in turns
+        fn, fetched = (one, one_fetched) if name == "one" else (separate, separate_fetched)
+        runs = out[name]
+        runs.setdefault("device_ms", []).append(graph_ms(fn))
+        runs.setdefault("ms", []).append(cuda_ms(fn, iters=50))
+        runs.setdefault("fetched_ms", []).append(host_ms(fetched))
+    for name, runs in out.items():
+        say(f"  time {name} ({'one launch' if name == 'one' else 'a call per group'}): "
+            f"device only {fmt(runs['device_ms'])} ms, eager {fmt(runs['ms'])} ms, with "
+            f"the fetch {fmt(runs['fetched_ms'])} ms (host clock) [{CARD}]")
+    return {"groups": shapes, "ticks": GROUP_TICKS, "launches": launches, **out}
+
+
+def host_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean milliseconds per call of ``fn`` on the host's clock; ``fn``
+    ends by waiting for the card."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def fmt(values: list[float]) -> str:
+    return ", ".join(f"{v:.5f}" for v in values)
 
 
 def test_pattern_frames(elapsed: float) -> list[np.ndarray]:
@@ -485,13 +603,12 @@ def phase7_server(dev) -> None:
                            dtype=np.uint8) for _ in range(4)]
     stacks_dev = [torch.from_numpy(s).to(dev) for s in stacks]
     composites = [compositor.composite_reference(s, plan.composite) for s in stacks]
-    staging = cells.HostStaging()
     expected: dict[tuple, bytes] = {}
     r = grp.render
 
     def tick(t: int) -> list[bytes]:
         records = grp.step(stacks_dev[t % len(stacks)], time_s=100.0 + t / 60)
-        host = cells.records_to_numpy(records, staging)
+        host = grp.fetch(records)
         return emitter.emit_frames(host, r.mode, grp.palette, pad_w=r.pad_w,
                                    pad_h=r.pad_h)
 
@@ -666,7 +783,9 @@ def phase10_server_tick(dev, err: AudioErr) -> dict[str, int]:
     reset_launches()
     outs = []
     for t in range(SERVER_TICKS):
-        outs.append(tick.step(stacks[t % 3], audio_dev[t], active_dev[t], 100.0 + t / 60))
+        records, mixes = tick.step(stacks[t % 3], audio_dev[t], active_dev[t], 100.0 + t / 60)
+        # the records are the group's arena, which the next step reuses
+        outs.append(({k: v.clone() for k, v in records.items()}, mixes))
     launches = read_launches()
     say(f"  launches over the {SERVER_TICKS} ticks: {launches}")
     for name in (server.RENDER_GROUP_KERNEL.name, audio.MIXER_KERNEL.name):
@@ -675,10 +794,10 @@ def phase10_server_tick(dev, err: AudioErr) -> dict[str, int]:
     # the plain tick, replayed on the same inputs: rainbow tint per tick
     g = tick.group
     for t, (records, mixes) in enumerate(outs):
-        tint = torch.from_numpy(filters.filter_params(SERVER_FILTERS, 100.0 + t / 60)[0]).to(dev)
-        want = server.render_compute(stacks[t % 3], g.ramp, tint, g.fg_on_bg, g.is_rainbow,
-                                     g.filter_on, g.maps.cidx, g.maps.src_y, g.maps.src_x,
-                                     g.maps.comp_mask, **geo)
+        params = [torch.from_numpy(a).to(dev)
+                  for a in filters.filter_params(SERVER_FILTERS, 100.0 + t / 60)]
+        want = server.render_compute(stacks[t % 3], g.ramp, *params, g.maps.cidx,
+                                     g.maps.src_y, g.maps.src_x, g.maps.comp_mask, **geo)
         if max_abs_err(records, want) != 0:
             raise AssertionError(f"ServerTick tick {t}: records differ from the plain tick")
         want_mix, plain_state = audio.mixer_process_reference(audio_dev[t], active_dev[t],
@@ -906,6 +1025,8 @@ def main() -> int:
     }
     stack = make_frames(SERVER_SOURCES, UPLINK_H, UPLINK_W, seed=5, device=dev)
     times["render_group"] = phase5_group(dev, stack, errs["render_group"])
+    times["render_group"]["three_groups"] = phase5b_three_groups(dev, stack,
+                                                                 errs["render_group"])
 
     paths: dict[str, dict[str, int]] = {}  # path -> kernel -> launches
     reset_launches()
@@ -941,8 +1062,9 @@ def main() -> int:
         t = times[k.name]
         entry.update(ms=t["ms"], plain_ms=t["plain_ms"], device_ms=t["device_ms"],
                      **bounds(t), library_ms=t["library_ms"])
-        if "library_device_ms" in t:
-            entry["library_device_ms"] = t["library_device_ms"]
+        for key in ("library_device_ms", "three_groups"):
+            if key in t:
+                entry[key] = t[key]
         report["kernels"].append(entry)
     say(json.dumps(report))
     say(json.dumps({"ok": True, "device": {

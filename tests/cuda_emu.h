@@ -1,19 +1,24 @@
-// A CPU emulation of the CUDA features that a single-block kernel uses, for
+// A CPU emulation of the CUDA features that the port's kernels use, for
 // running a kernel's source under g++ in the CPU tests: the block's threads
 // are std::threads, __shared__ variables are function statics (one copy,
 // seen by every thread), __syncthreads is a barrier over the block (and
 // __syncthreads_or a vote across it), and the warp collectives exchange through per-warp arrays between two barriers.
+// A grid runs its blocks one at a time, in a scrambled order (CUDA promises
+// none), on one set of threads that a barrier holds between blocks.
 // Dynamic shared memory is one buffer per launch (emu_dynamic_smem: the
 // kernel's `extern __shared__` array is rewritten to point at it), and the
 // cp.async pipeline (__pipeline_memcpy_async / _commit / _wait_prior) queues
 // each thread's copies and performs them only when a wait retires their
 // batch, so a read that the kernel does not wait for sees stale data.
 // Launch with EMU_LAUNCH(kernel, threads, smem_bytes, args...) in place of
-// kernel<<<1, threads, smem_bytes, stream>>>(args). It runs the kernel's
+// kernel<<<1, threads, smem_bytes, stream>>>(args), and with
+// EMU_LAUNCH_GRID(kernel, blocks, threads, smem_bytes, args...) in place of
+// kernel<<<blocks, threads, smem_bytes, stream>>>(args). It runs the kernel's
 // logic, not its compiled code: the card's compiler and memory model are
 // checked only on the card.
 #pragma once
 
+#include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <cmath>
@@ -21,6 +26,8 @@
 #include <deque>
 #include <functional>
 #include <memory>
+#include <numeric>
+#include <random>
 #include <thread>
 #include <vector>
 
@@ -31,12 +38,19 @@
 #define __launch_bounds__(x)
 #define __restrict__
 #define __shared__ static
-#define __align__(n) alignas(n)
+#define __align__(n) __attribute__((aligned(n)))
+#define __grid_constant__
 
 struct EmuDim3 {
   int x = 0, y = 0, z = 0;
 };
 inline thread_local EmuDim3 threadIdx;
+inline thread_local EmuDim3 blockIdx;
+inline EmuDim3 blockDim, gridDim;
+
+struct alignas(16) uint4 {
+  unsigned int x, y, z, w;
+};
 
 using cudaStream_t = void*;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -123,13 +137,25 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
+
 // Run fn on `threads` threads (a multiple of 32, at most 1024) as one block
 // with `smem_bytes` of dynamic shared memory, which starts as NaNs so that a
 // read of a value never stored shows in the result.
-inline void emu_run(int threads, size_t smem_bytes,
-                    const std::function<void()>& fn) {
+// Run fn as a grid of `blocks` blocks (in a scrambled order) of `threads`
+// threads each.
+inline void emu_run_grid(int blocks, int threads, size_t smem_bytes,
+                         const std::function<void()>& fn) {
+  std::vector<int> order(blocks);
+  std::iota(order.begin(), order.end(), 0);
+  std::shuffle(order.begin(), order.end(), std::mt19937(blocks));
   std::vector<float> smem(smem_bytes / sizeof(float) + 4, NAN);
   emu_dynamic_smem = smem.data();
+  gridDim.x = blocks;
+  blockDim.x = threads;
   std::barrier<> block(threads);
   emu_block = &block;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
@@ -139,14 +165,25 @@ inline void emu_run(int threads, size_t smem_bytes,
   }
   std::vector<std::thread> pool;
   for (int i = 0; i < threads; ++i)
-    pool.emplace_back([i, &fn] {
+    pool.emplace_back([i, &fn, &order, &block] {
       threadIdx.x = i;
-      fn();
-      emu_open_batch.clear();  // copies a thread never waited for
-      emu_batches.clear();
+      for (int b : order) {
+        blockIdx.x = b;
+        fn();
+        emu_open_batch.clear();  // copies a thread never waited for
+        emu_batches.clear();
+        block.arrive_and_wait();  // the next block reuses the shared memory
+      }
     });
   for (auto& t : pool) t.join();
 }
 
+inline void emu_run(int threads, size_t smem_bytes,
+                    const std::function<void()>& fn) {
+  emu_run_grid(1, threads, smem_bytes, fn);
+}
+
 #define EMU_LAUNCH(kernel, threads, smem_bytes, ...) \
   emu_run(threads, smem_bytes, [&] { kernel(__VA_ARGS__); })
+#define EMU_LAUNCH_GRID(kernel, blocks, threads, smem_bytes, ...) \
+  emu_run_grid(blocks, threads, smem_bytes, [&] { kernel(__VA_ARGS__); })

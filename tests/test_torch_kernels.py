@@ -75,12 +75,153 @@ def test_render_group_kernel_matches_plain(cuda, color, render_mode):
     grp = server.RenderGroup(sizes, 100, 30, TerminalCapabilities(color, render_mode),
                              names, device=cuda)
     got = grp.step(stack, time_s=1.7)
-    m, r = grp.maps, grp.render
-    want = server.render_compute(stack, grp.ramp, grp.tint, grp.fg_on_bg, grp.is_rainbow,
-                                 grp.filter_on, m.cidx, m.src_y, m.src_x, m.comp_mask,
-                                 mode=r.mode, dst_h=r.dst_h_px, dst_w=r.dst_w)
+    want = _plain(grp, stack)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def _plain(grp: server.RenderGroup, stack: torch.Tensor) -> cells.RecordDict:
+    """The plain render of ``grp`` on the stack's device, with the group's
+    host filter vectors as they stand."""
+    m, r = grp.maps, grp.render
+    params = (t.to(stack.device) for t in (grp.tint, grp.fg_on_bg, grp.is_rainbow,
+                                           grp.filter_on))
+    return server.render_compute(stack, grp.ramp, *params, m.cidx, m.src_y, m.src_x,
+                                 m.comp_mask, mode=r.mode, dst_h=r.dst_h_px, dst_w=r.dst_w)
+
+
+def _groups(device, spec) -> list[server.RenderGroup]:
+    sizes = [(80, 60), (64, 48), (50, 70)]
+    return [server.RenderGroup(sizes, w, h, TerminalCapabilities(color, mode), names,
+                               palette=palette, device=device)
+            for w, h, color, mode, names, palette in spec]
+
+
+THREE = [(100, 30, ColorLevel.TRUECOLOR, RenderMode.HALF_BLOCK,
+          ["none", "green", "rainbow", "black", "pink"], pal.DEFAULT_PALETTE),
+         (61, 21, ColorLevel.COLOR_256, RenderMode.FOREGROUND, ["rainbow"],
+          pal.DEFAULT_PALETTE),
+         (40, 13, ColorLevel.NONE, RenderMode.FOREGROUND,
+          ["cyan", "none", "red"], pal.BUILTIN_PALETTES["digital"])]
+
+
+@pytest.mark.gpu
+def test_render_groups_one_launch_matches_plain(cuda):
+    """Three groups of different geometry, family and receiver count in one
+    K3 launch, each bit-exact against the plain version."""
+    stack = _frames(3, 70, 80, seed=5, device=cuda)
+    groups = _groups(cuda, THREE)
+    arena = server.RecordArena(cuda)
+    before = server.RENDER_GROUP_KERNEL.launches
+    got = server.render_groups(stack, groups, 2.9, arena)
+    assert server.RENDER_GROUP_KERNEL.launches == before + 1
+    for g, rec in zip(groups, got):
+        want = _plain(g, stack)
+        assert list(rec) == list(want)
+        for k in want:
+            assert torch.equal(rec[k], want[k]), (g.render.mode, k)
+    host = arena.fetch(got)
+    for rec, h in zip(got, host):
+        for k in rec:
+            assert np.array_equal(h[k], rec[k].cpu().numpy()), k
+
+
+@pytest.mark.gpu
+def test_render_groups_rainbow_tint_changes_between_ticks(cuda):
+    """The rainbow tint changes on the host from tick to tick, with no
+    upload, and each tick's records follow it."""
+    stack = _frames(3, 70, 80, seed=6, device=cuda)
+    groups = _groups(cuda, THREE[:2])
+    arena = server.RecordArena(cuda)
+    seen = []
+    for time_s in (0.2, 1.4, 2.6):
+        got = server.render_groups(stack, groups, time_s, arena)
+        for g, rec in zip(groups, got):
+            np.testing.assert_array_equal(g.tint[g.is_rainbow].numpy()[0],
+                                          server.filters.rainbow_color(time_s))
+            want = _plain(g, stack)
+            for k in want:
+                assert torch.equal(rec[k], want[k]), (time_s, k)
+        seen.append(got[1]["color"].clone())
+    assert not torch.equal(seen[0], seen[1]) and not torch.equal(seen[1], seen[2])
+
+
+@pytest.mark.gpu
+def test_record_arena_reused_and_regrown(cuda):
+    """The arena keeps its buffer while the groups are unchanged, grows for
+    a larger set, and serves a smaller set from the grown buffer."""
+    stack = _frames(3, 70, 80, seed=7, device=cuda)
+    three = _groups(cuda, THREE)
+    arena = server.RecordArena(cuda)
+    first = server.render_groups(stack, three[1:], 0.5, arena)
+    assert arena._host is None  # the pinned buffer waits for the first fetch
+    ptr = first[0]["color"].data_ptr()
+    again = server.render_groups(stack, three[1:], 0.5, arena)
+    assert again is first and again[0]["color"].data_ptr() == ptr
+    grown = server.render_groups(stack, three, 0.5, arena)
+    for g, rec in zip(three, grown):
+        want = _plain(g, stack)
+        for k in want:
+            assert torch.equal(rec[k], want[k]), k
+    buffer = grown[0]["top"].untyped_storage().data_ptr()
+    small = server.render_groups(stack, three[2:], 0.5, arena)
+    assert small[0]["key"].untyped_storage().data_ptr() == buffer
+    assert torch.equal(small[0]["key"], _plain(three[2], stack)["key"])
+    host = arena.fetch(small)
+    assert np.array_equal(host[0]["key"], small[0]["key"].cpu().numpy())
+    with pytest.raises(ValueError, match="last layout"):
+        arena.fetch(grown)
+
+
+@pytest.mark.gpu
+def test_render_groups_past_one_descriptor_and_one_launch(cuda):
+    """20 receivers take two descriptors; 18 groups take two launches."""
+    stack = _frames(3, 70, 80, seed=8, device=cuda)
+    names = (server.filters.FILTER_NAMES * 2)[:20]
+    wide = _groups(cuda, [(50, 16, ColorLevel.TRUECOLOR, RenderMode.HALF_BLOCK, names,
+                           pal.DEFAULT_PALETTE)])
+    kinds = [(c, m) for c in (ColorLevel.NONE, ColorLevel.COLOR_16, ColorLevel.COLOR_256,
+                              ColorLevel.TRUECOLOR)
+             for m in (RenderMode.FOREGROUND, RenderMode.HALF_BLOCK)]
+    many = _groups(cuda, [(30 + 2 * i, 10 + i % 3, *kinds[i % len(kinds)],
+                           ["green", "rainbow"][: 1 + i % 2], pal.DEFAULT_PALETTE)
+                          for i in range(18)])
+    for groups, launches in ((wide, 1), (many, 2)):
+        before = server.RENDER_GROUP_KERNEL.launches
+        got = server.render_groups(stack, groups, 1.1, server.RecordArena(cuda))
+        assert server.RENDER_GROUP_KERNEL.launches == before + launches
+        for g, rec in zip(groups, got):
+            want = _plain(g, stack)
+            for k in want:
+                assert torch.equal(rec[k], want[k]), (g.render.mode, k)
+
+
+@pytest.mark.gpu
+def test_render_group_and_tick_compute_from_arrays_match_plain(cuda):
+    """The array-level render_group and tick_compute launch K3 (and K4) on
+    the card, each into records of its own, and match the plain versions."""
+    sizes = [(80, 60), (64, 48), (50, 70)]
+    caps = TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.HALF_BLOCK)
+    tt = server.ServerTick(server.plan_tick(sizes, 100, 30, caps),
+                           client_filters=["none", "green", "rainbow"], device=cuda)
+    stack = _frames(3, 70, 80, seed=9, device=cuda)
+    rng = np.random.default_rng(9)
+    sound = torch.from_numpy((rng.standard_normal((3, 480)) * 0.1).astype(np.float32)).to(cuda)
+    active = torch.ones(3, dtype=torch.bool, device=cuda)
+    r = tt.plan.render
+    geo = dict(mode=r.mode, dst_h=r.dst_h_px, dst_w=r.dst_w)
+    before = (server.RENDER_GROUP_KERNEL.launches, audio.MIXER_KERNEL.launches)
+    bare = server.render_group(stack, *tt.consts, **geo)
+    records, mixes, _ = server.tick_compute(stack, sound, active, tt.mixer_state, *tt.consts,
+                                            **geo)
+    assert (server.RENDER_GROUP_KERNEL.launches,
+            audio.MIXER_KERNEL.launches) == (before[0] + 2, before[1] + 1)
+    assert bare["top"].data_ptr() != records["top"].data_ptr()
+    want = _plain(tt.group, stack)
+    for k in want:
+        assert torch.equal(bare[k], want[k]) and torch.equal(records[k], want[k]), k
+    want_mix, _ = audio.mixer_process_reference(sound, active, tt.mixer_state)
+    torch.testing.assert_close(mixes, want_mix, rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.gpu

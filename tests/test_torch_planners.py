@@ -82,6 +82,17 @@ TIMES = [0.0, 0.3, 1.0, 1.75, 2.9, 3.49, 3.5, 7.1, 1234.567, 1e6 + 0.123,
          -0.2, -1.0, -3.6, -100.25]
 
 
+def test_rainbow_color_matches_jax_densely():
+    """The port computes the rainbow tint in Python floats rounded to
+    float32 at every step; the JAX package's copy in numpy float32 scalars.
+    Equal over dense and random times, negative ones included."""
+    rng = np.random.default_rng(0)
+    times = np.concatenate([np.arange(-7.0, 7.0, 0.0007), rng.uniform(-100, 100, 5000),
+                            rng.uniform(0, 1e6, 5000), [-0.0, 1e-30, -1e-30, 123456789.5]])
+    bad = [t for t in times.tolist() if tfilt.rainbow_color(t) != jfilt.rainbow_color(t)]
+    assert not bad, bad[:5]
+
+
 @pytest.mark.parametrize("time_s", TIMES)
 def test_rainbow_and_filter_params_match_jax(time_s):
     assert tfilt.rainbow_color(time_s) == jfilt.rainbow_color(time_s)

@@ -1,7 +1,8 @@
 """The port's server render tick (models/server.py) against the JAX package:
-RenderGroup.step records with mixed filters and rainbow, state carried over
-by utils/convert.py, the emitted bytes against the oracle, and the host-side
-composed maps K3 reads. Tolerance: exact equality."""
+RenderGroup.step and render_groups records with mixed filters and rainbow,
+state carried over by utils/convert.py, the emitted bytes against the
+oracle, and the host-side maps and filter words K3 reads. Tolerance: exact
+equality."""
 
 import dataclasses
 
@@ -142,6 +143,68 @@ def test_composed_maps_equal_composite_then_resize(sizes, term_w, term_h, dst_h,
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("sizes,term_w,term_h,dst_h,dst_w", LAYOUTS)
+def test_pixel_words_equal_composite_then_resize(sizes, term_w, term_h, dst_h, dst_w):
+    """K3's one-word map (byte offsets in the stack, -1 for background)
+    reads the same pixels as resizing the composite."""
+    stack = _stack(sizes, seed=11)
+    plan = tcomp.plan_composite(sizes, term_w, term_h)
+    words = tcomp.pixel_words(*tcomp.compose_maps(*tcomp.host_maps(plan), dst_h, dst_w),
+                              stack.shape)
+    assert words.dtype == np.int32 and words.shape == (dst_h, dst_w)
+    flat = stack.reshape(-1)
+    got = flat[np.maximum(words, 0)[..., None] + np.arange(3)]
+    got[words < 0] = 0
+    comp = torch.from_numpy(tcomp.composite_reference(stack, plan))
+    want = tpixel.resize_nn(comp[None], dst_h, dst_w)[0].numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pixel_words_refuse_a_stack_past_int32():
+    k = np.zeros((2, 3), np.int32)
+    tcomp.pixel_words(k, k, k, (8, 600, 800, 3))
+    with pytest.raises(ValueError, match="int32"):
+        tcomp.pixel_words(k, k, k, (2000, 600, 800, 3))
+
+
+def test_render_groups_match_jax_groups():
+    """render_groups on the CPU, three groups of different geometry, mode,
+    palette and receivers in one call, each equal to the JAX package's
+    RenderGroup.step of that group, tick after tick (the rainbow moves)."""
+    stack = _stack(seed=13)
+    specs = [(100, 30, CAPS[0], FILTERS, tserver.pal.DEFAULT_PALETTE),
+             (61, 21, CAPS[5], ["rainbow"], tserver.pal.DEFAULT_PALETTE),
+             (40, 13, CAPS[6], ["cyan", "none", "red"], tserver.pal.BUILTIN_PALETTES["digital"])]
+    jgroups = [jserver.RenderGroup(SIZES, w, h, caps, names, palette)
+               for w, h, caps, names, palette in specs]
+    tgroups = [tserver.RenderGroup(SIZES, w, h, caps, names, palette, device=CPU)
+               for w, h, caps, names, palette in specs]
+    for time_s in (0.3, 1.9):
+        got = tserver.render_groups(torch.from_numpy(stack), tgroups, time_s)
+        for jg, rec in zip(jgroups, got):
+            want = jg.step(jnp.asarray(stack), time_s)
+            assert sorted(rec) == sorted(want)
+            for k in want:
+                np.testing.assert_array_equal(rec[k].numpy(), np.asarray(want[k]), err_msg=k)
+    assert [g.ticks for g in tgroups] == [2, 2, 2]
+
+
+def test_receiver_words_and_tile_width():
+    tint, fg, rb, on = tfilt.filter_params(["none", "black", "rainbow", "pink"], 0.7)
+    words = tserver.receiver_words(tint, fg, rb, on)
+    assert words.dtype == np.uint8 and words.shape == (4, 4)
+    np.testing.assert_array_equal(words[:, :3], tint)
+    assert list(words[:, 3]) == [0, tserver.RECV_ENABLED | tserver.RECV_FG_ON_BG,
+                                 tserver.RECV_ENABLED | tserver.RECV_RAINBOW,
+                                 tserver.RECV_ENABLED]
+    with pytest.raises(ValueError, match="0..255"):
+        tserver.receiver_words(tint + 300, fg, rb, on)
+    for rows, width in ((64, 203), (24, 80), (1, 1024), (512, 7)):
+        w = tserver.tile_width(rows, width, 132)
+        assert tserver.K3_MIN_TILE_CELLS <= w <= tserver.K3_MAX_TILE_CELLS
+    assert tserver.tile_width(64, 203, 132) == 68  # 3 tiles a row: 192 tiles fill 132 SMs
+
+
 def test_group_maps_bound_the_source_stack():
     grp = tserver.RenderGroup(SIZES, 100, 30, CAPS[0], ["none"], device=CPU)
     m = grp.maps
@@ -150,6 +213,14 @@ def test_group_maps_bound_the_source_stack():
     live = m.k_cidx >= 0
     assert int(m.k_sy[live].max()) < m.min_h and int(m.k_sx[live].max()) < m.min_w
     assert m.k_cidx.shape == (grp.render.dst_h_px, grp.render.dst_w)
+    shape = (m.n_src, m.min_h, m.min_w, 3)
+    words = m.words(shape)
+    assert m.words(shape) is words  # the last shape's map is kept
+    np.testing.assert_array_equal(
+        words.numpy(), tcomp.pixel_words(m.k_cidx, m.k_sy, m.k_sx, shape))
+    assert m.words((m.n_src + 1, m.min_h, m.min_w + 5, 3)) is not words
+    with pytest.raises(ValueError, match="smaller than"):
+        m.words((m.n_src, m.min_h - 1, m.min_w, 3))
 
 
 def test_rainbow_refresh_replaces_only_tint():

@@ -26,7 +26,7 @@ from asciichat_tpu.net.transport import connect_tcp
 from asciichat_tpu.render import oracle
 from asciichat_tpu.render.types import ColorLevel, RenderMode, TerminalCapabilities
 from asciichat_tpu_torch.apps import server as tserver
-from asciichat_tpu_torch.models.server import RenderGroup
+from asciichat_tpu_torch.models.server import RecordArena
 from asciichat_tpu_torch.ops import compositor, filters
 
 from conftest import synthetic_frame
@@ -79,9 +79,9 @@ def _run(body, **server_kwargs):
     return asyncio.run(main())
 
 
-def _wire(color_filter: str = "none") -> proto.WireCapabilities:
+def _wire(color_filter: str = "none", term=(TERM_W, TERM_H)) -> proto.WireCapabilities:
     # bit 0 of capabilities_mask: frames arrive uncompressed (no zstandard)
-    return proto.WireCapabilities(caps=HB_TRUECOLOR, width=TERM_W, height=TERM_H,
+    return proto.WireCapabilities(caps=HB_TRUECOLOR, width=term[0], height=term[1],
                                   capabilities_mask=0x1,
                                   color_filter=filters.FILTER_NAMES.index(color_filter))
 
@@ -98,7 +98,7 @@ async def _join(srv, n_before: int, wire: proto.WireCapabilities, frame=None):
     return t
 
 
-def _oracle(frames: list[np.ndarray], name: str) -> bytes:
+def _oracle(frames: list[np.ndarray], name: str, term=(TERM_W, TERM_H)) -> bytes:
     """A receiver's expected bytes: the composite of ``frames`` at the
     receiver's geometry, filtered, through the oracle."""
     sizes = [(f.shape[1], f.shape[0]) for f in frames]
@@ -106,9 +106,9 @@ def _oracle(frames: list[np.ndarray], name: str) -> bytes:
                       max(f.shape[1] for f in frames), 3), np.uint8)
     for i, f in enumerate(frames):
         stack[i, :f.shape[0], :f.shape[1]] = f
-    comp = compositor.composite_reference(stack, compositor.plan_composite(sizes, TERM_W, TERM_H))
+    comp = compositor.composite_reference(stack, compositor.plan_composite(sizes, *term))
     return oracle.ascii_convert_with_capabilities(
-        filters.apply_color_filter_reference(comp, name), TERM_W, 2 * TERM_H, HB_TRUECOLOR)
+        filters.apply_color_filter_reference(comp, name), term[0], 2 * term[1], HB_TRUECOLOR)
 
 
 async def _frame_equal(t, want: bytes, what: str) -> None:
@@ -225,6 +225,42 @@ def test_stack_high_watermark_grows_mid_session():
     assert state["device_failures"] == 0
 
 
+def test_two_terminal_sizes_render_in_one_call_per_tick(monkeypatch):
+    """Clients of two terminal sizes form two geometry groups: each client
+    gets its oracle bytes, and every tick renders both groups with one
+    render_groups call (on a card that call is one K3 launch, counted by
+    chip_smoke.py)."""
+    calls: list[tuple[int, int]] = []  # (the server's tick count, groups)
+    real = tserver.render_groups
+    frames = _frames([(64, 48), (40, 30)], seed=14)
+    small = (30, 10)
+
+    async def body(srv):
+        def counted(frames_dev, groups, *args, **kwargs):
+            calls.append((srv.ticks, len(groups)))
+            return real(frames_dev, groups, *args, **kwargs)
+
+        monkeypatch.setattr(tserver, "render_groups", counted)
+        a = await _join(srv, 0, _wire("none"), frames[0])
+        b = await _join(srv, 1, _wire("green", small), frames[1])
+        await _frame_equal(a, _oracle(frames, "none"), "client 0 (40x12)")
+        await _frame_equal(b, _oracle(frames, "green", small), "client 1 (30x10)")
+        state = srv.server_state()
+        await a.close()
+        await b.close()
+        return state
+
+    state = _run(body)
+    ticks = [t for t, _ in calls]
+    assert len(set(ticks)) == len(ticks)  # never two render calls in one tick
+    assert max(n for _, n in calls) == 2  # both groups in one call
+    assert state["device_failures"] == 0
+
+
+# the device step of a tick, and its fetch
+FAULT_TARGETS = {"step": (tserver, "render_groups"), "fetch": (RecordArena, "fetch")}
+
+
 @pytest.mark.parametrize("stage", ["step", "fetch"])
 def test_device_fault_skips_the_tick(monkeypatch, stage):
     """A tick whose device work fails (at the launch or at the fetch) is
@@ -233,14 +269,15 @@ def test_device_fault_skips_the_tick(monkeypatch, stage):
     logged at ERROR. Once the fault clears, the next tick re-uploads the
     stack and serves oracle frames."""
     fault = {"on": True}
-    real = getattr(RenderGroup, stage)
+    owner, name = FAULT_TARGETS[stage]
+    real = getattr(owner, name)
 
-    def flaky(self, *args, **kwargs):
+    def flaky(*args, **kwargs):
         if fault["on"]:
             raise RuntimeError("injected device fault")
-        return real(self, *args, **kwargs)
+        return real(*args, **kwargs)
 
-    monkeypatch.setattr(RenderGroup, stage, flaky)
+    monkeypatch.setattr(owner, name, flaky)
     frames = _frames([(64, 48), (40, 30)], seed=12)
     records: list[logging.LogRecord] = []
     handler = logging.Handler()
