@@ -1,16 +1,19 @@
-"""Command line of the port: the reference CLI's parser, the port's mirror and
-server.
+"""Command line of the port: the reference CLI's parser, the port's mirror,
+server and client.
 
     python -m asciichat_tpu_torch.apps.main mirror --test-pattern --snapshot
     python -m asciichat_tpu_torch.apps.main server --port 27224
+    python -m asciichat_tpu_torch.apps.main client 127.0.0.1 --port 27224 --test-pattern
 
 :func:`build_parser` is built from the port's options registry
 (``utils/options.py``) as ``asciichat_tpu/apps/main.py`` builds it, so flags,
-help and defaults are the reference CLI's. ``mirror`` and ``server`` are
-ported; every other mode (client, discovery, ...), mirror's ``--render-file``
-and ``--matrix``, the server's ``--ws-port`` and ``--mdns``, and ``--config``
-exit non-zero with "not yet ported". The device is ``ASCIICHAT_TORCH_DEVICE``
-(``cuda`` by default, ``cpu`` for the plain PyTorch versions).
+help and defaults are the reference CLI's. ``mirror``, ``server`` and
+``client`` (over TCP) are ported; every other mode (discovery, ...), mirror's
+``--render-file`` and ``--matrix``, the server's ``--ws-port`` and
+``--mdns``, the client's ``--ws``, ``--webrtc`` and ``--browse``, and
+``--config`` exit non-zero with "not yet ported". The device is
+``ASCIICHAT_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` for the plain PyTorch
+versions); a client uses it only for its audio capture chain.
 """
 
 from __future__ import annotations
@@ -69,6 +72,18 @@ def cmd_server(args) -> int:
     return server.main(args)
 
 
+def cmd_client(args) -> int:
+    if args.browse:
+        return _not_ported("client --browse (LAN discovery over mDNS)")
+    if args.ws:
+        return _not_ported("client --ws (the WebSocket transport)")
+    if args.webrtc:
+        return _not_ported("client --webrtc (the WebRTC transport)")
+    from asciichat_tpu_torch.apps import client
+
+    return client.main(args)
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The reference CLI's parser (``asciichat_tpu/apps/main.py``), generated
     from the options registry: the same modes, flags, help and defaults.
@@ -97,6 +112,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     c = sub.add_parser("client", help="connect to a server")
     apply_to_parser(reg, c, Mode.CLIENT)
+    c.set_defaults(fn=cmd_client)
 
     d = sub.add_parser("discovery-service", help="ACDS rendezvous server")
     apply_to_parser(reg, d, Mode.ACDS, default_overrides={"port": 27225})

@@ -4,7 +4,8 @@ Counterpart of ``asciichat_tpu/models/mirror.py`` on the port's renderer.
 Capture runs on a thread feeding a drop-on-full queue; the main loop converts
 on the renderer's device and writes frames. ``--snapshot`` renders one frame
 and exits (session/render.c:128-143). Display and pacing are the session
-framework's (``models/session.py``).
+framework's (``models/session.py``), and so is the capture-side
+``FrameTransform``, which the client shares.
 """
 
 from __future__ import annotations
@@ -13,11 +14,10 @@ import queue
 import threading
 import time
 
-import numpy as np
 import torch
 
-from asciichat_tpu_torch.models.session import DisplaySink, Pacer
-from asciichat_tpu_torch.ops import filters
+from asciichat_tpu_torch.models.session import (  # noqa: F401 (re-exported)
+    MATRIX_NOT_PORTED, DisplaySink, FrameTransform, Pacer)
 from asciichat_tpu_torch.render.pipeline import AsciiRenderer
 from asciichat_tpu_torch.render.types import TerminalCapabilities
 from asciichat_tpu_torch.runtime.double_buffer import FrameQueue
@@ -25,31 +25,6 @@ from asciichat_tpu_torch.runtime.framesource import FrameSource
 from asciichat_tpu_torch.utils import ui
 from asciichat_tpu_torch.utils.errors import AsciiChatError, ErrorCode
 from asciichat_tpu_torch.utils.keyboard import KeyboardReader
-
-MATRIX_NOT_PORTED = ("--matrix needs the digital-rain overlay (ops/rain.py), which "
-                     "is not ported yet: ROADMAP.md Queue 1, item 9")
-
-
-class FrameTransform:
-    """Capture-side frame chain: flips, then the color filter (the port's
-    ``filters.apply_color_filter_reference``). Fields are live-mutable."""
-
-    def __init__(self, flip_x: bool = False, flip_y: bool = False,
-                 color_filter: str = "none"):
-        self.flip_x = flip_x
-        self.flip_y = flip_y
-        self.color_filter = color_filter
-
-    def __call__(self, frame: np.ndarray) -> np.ndarray:
-        frame = np.asarray(frame)
-        if self.flip_x:
-            frame = frame[:, ::-1]
-        if self.flip_y:
-            frame = frame[::-1]
-        if self.color_filter != "none":
-            frame = filters.apply_color_filter_reference(
-                frame, self.color_filter, time.monotonic())
-        return frame
 
 
 class MirrorSession:
@@ -69,15 +44,13 @@ class MirrorSession:
         matrix: bool = False,
         device: torch.device | str | None = None,
     ):
-        if matrix:
-            raise NotImplementedError(MATRIX_NOT_PORTED)
         self.source = source
         self.caps = caps
         self.width = width
         self.height = height
-        self.renderer = AsciiRenderer(palette, device)
-        self.transform = FrameTransform(flip_x=flip_x, flip_y=flip_y,
+        self.transform = FrameTransform(flip_x=flip_x, flip_y=flip_y, matrix=matrix,
                                         color_filter=color_filter)
+        self.renderer = AsciiRenderer(palette, device)
         self.stretch = stretch
         self.display = DisplaySink(show_fps=show_fps)
         self.display.set_meta(caps.renderer_key(), (width, height))

@@ -1,20 +1,69 @@
-"""The session framework's display and pacing, as mirror mode uses them.
+"""Shared session framework: the capture/display/retry layer of the mirror
+and the client.
 
-Copied from ``asciichat_tpu/models/session.py`` (src/common/session/
-display.c in the reference):
+Copied from ``asciichat_tpu/models/session.py`` (src/common/session/ in the
+reference: client_like.c, pipeline.c, display.c):
 
+- FrameTransform: the capture-side frame chain (flip, color filter, upload
+  fit) with its live-mutable fields, used by the mirror's convert stage and
+  the client's capture task (pipeline.c stage 1->2). The digital-rain
+  overlay (``matrix``) is not ported yet.
 - DisplaySink: terminal frame writing with first-frame reset, chat lines,
   help/fps overlays (display.c + client display semantics).
+- ReconnectPolicy: the reference's backoff-with-reset connect retry
+  (client_like.c reconnect loop).
 - Pacer: fps-cap pacing shared by thread loops and asyncio tasks.
-
-The capture-side ``FrameTransform`` is the port's own
-(``models/mirror.py``); the reconnect policy waits for the client.
 """
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
+
+from asciichat_tpu_torch.ops import filters
 from asciichat_tpu_torch.utils import term, ui
 from asciichat_tpu_torch.utils.fps import FpsCounter
+
+MATRIX_NOT_PORTED = ("--matrix needs the digital-rain overlay (ops/rain.py), which "
+                     "is not ported yet: ROADMAP.md Queue 1, item 9")
+
+
+class FrameTransform:
+    """Capture-side frame chain (pipeline.c capture->convert hand-off):
+    flips -> color filter -> optional upload fit (the oracle's resize, so
+    an uploaded picture is the one the reference client sends). All fields
+    are live-mutable (keybindings toggle them mid-session)."""
+
+    def __init__(self, flip_x: bool = False, flip_y: bool = False,
+                 matrix: bool = False, color_filter: str = "none",
+                 max_upload: tuple[int, int] | None = None):
+        if matrix:
+            raise NotImplementedError(MATRIX_NOT_PORTED)
+        self.flip_x = flip_x
+        self.flip_y = flip_y
+        self.color_filter = color_filter
+        self.max_upload = max_upload
+
+    def __call__(self, frame: np.ndarray) -> np.ndarray:
+        frame = np.asarray(frame)
+        if self.flip_x:
+            frame = frame[:, ::-1]
+        if self.flip_y:
+            frame = frame[::-1]
+        if self.color_filter != "none":
+            frame = filters.apply_color_filter_reference(
+                frame, self.color_filter, time.monotonic())
+        if self.max_upload is not None:
+            mw, mh = self.max_upload
+            h, w = frame.shape[:2]
+            if w > mw or h > mh:
+                from asciichat_tpu_torch.render.oracle import resize_image
+                from asciichat_tpu_torch.utils.aspect import fit_dimensions_pixel
+
+                nw, nh = fit_dimensions_pixel(w, h, mw, mh)
+                frame = resize_image(frame, nw, nh)
+        return frame
 
 
 class DisplaySink:
@@ -69,6 +118,23 @@ class DisplaySink:
         ).encode("utf-8")
         self.writer.stream.write(b"\x1b[0m\r\n> " + clean + b"\r\n")
         self.writer.stream.flush()
+
+
+class ReconnectPolicy:
+    """Backoff-with-reset retry schedule (client_like.c reconnect loop)."""
+
+    SCHEDULE = (0.5, 1.0, 2.0, 5.0)
+
+    def __init__(self, enabled: bool = True, schedule: tuple[float, ...] = SCHEDULE):
+        self.enabled = enabled
+        self.schedule = schedule
+        self._it = iter(schedule)
+
+    def next_delay(self) -> float:
+        return next(self._it, self.schedule[-1])
+
+    def reset(self) -> None:
+        self._it = iter(self.schedule)
 
 
 class Pacer:

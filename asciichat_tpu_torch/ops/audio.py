@@ -1,36 +1,46 @@
-"""The server's exclude-self audio mixer: ducking, crowd gain, compression
-and soft clip for every listener in one call per 10 ms tick.
+"""The server's exclude-self audio mixer and the client's capture chain.
 
-Counterpart of the mixer half of ``asciichat_tpu/ops/audio.py`` (:35-244;
-that module imports JAX at the top, so the constants, ``MixerParams`` and the
-scalar helpers are copied here, and the tests hold each equal to its
-original). On a CUDA tensor :func:`mixer_process` launches K4
-(``csrc/mixer.cu``), which runs the whole tick's scan over 256-sample frames
-in one launch; on a CPU tensor it runs the plain version,
-:func:`mixer_process_reference`, a loop over the frames. Neither falls back to
-the other.
+Counterpart of ``asciichat_tpu/ops/audio.py`` (:35-589 but for the tail of
+lowpass, resampler and level analysis; that module imports JAX at the top, so
+the constants, ``MixerParams`` and the scalar helpers are copied here, and the
+tests hold each equal to its original). Neither kernel wrapper falls back to
+the plain version, nor the plain version to the kernel:
 
-Semantics kept from the reference (lib/audio/mixer.c): zero padding to a
-multiple of 256; inactive sources contribute silence and their envelope is
-frozen; the speaking gate at -60 dB; ducking leadership over all sources;
-each listener's crowd gain counts the speakers other than itself; per-listener
-compression; soft clip with the reference's negative-branch sign defect; and
-on a tick where no source is active, silence out with the state untouched.
-
-The client-side capture DSP of the same JAX module (noise gate, filters,
-resampler, level analysis, echo canceller) is not ported yet (ROADMAP.md).
+- the mixer: ducking, crowd gain, compression and soft clip for every
+  listener in one call per 10 ms tick. On a CUDA tensor :func:`mixer_process`
+  launches K4 (``csrc/mixer.cu``), which runs the whole tick's scan over
+  256-sample frames in one launch; on a CPU tensor it runs the plain version,
+  :func:`mixer_process_reference`, a loop over the frames. Semantics kept from
+  the reference (lib/audio/mixer.c): zero padding to a multiple of 256;
+  inactive sources contribute silence and their envelope is frozen; the
+  speaking gate at -60 dB; ducking leadership over all sources; each
+  listener's crowd gain counts the speakers other than itself; per-listener
+  compression; soft clip with the reference's negative-branch sign defect;
+  and on a tick where no source is active, silence out with the state
+  untouched.
+- the capture chain a mic frame runs on the client before it is sent: NLMS
+  echo cancellation with a Geigel double-talk freeze, a one-pole highpass and
+  a noise gate (:func:`echo_cancel`, :func:`highpass`, :func:`noise_gate`, and
+  all three as :func:`capture_chain`). On a CUDA tensor each launches K5
+  (``csrc/capture.cu``) for the stages it names; on a CPU tensor it runs its
+  plain version (``*_reference``), a per-sample loop in float32 in the JAX
+  package's order of operations. :class:`ClientAudioPipeline` carries the
+  chain's state across 10 ms frames on its device and feeds the echo
+  canceller the received playback as its far-end reference.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
 
-from asciichat_tpu_torch.runtime.device import check_tensor, stream_handle
+from asciichat_tpu_torch.runtime.device import check_tensor, default_device, stream_handle
 from asciichat_tpu_torch.runtime.kernel_build import Kernel
 
 MIXER_FRAME_SIZE = 256  # mixer.h:114
@@ -297,3 +307,477 @@ def mixer_process(
                      consts.ctypes.data, out.data_ptr(),
                      *(t.data_ptr() for t in new_state), stream_handle(dev))
     return out, new_state
+
+
+# ---------------------------------------------------------------------------
+# The client's capture chain (asciichat_tpu/ops/audio.py:247-589): echo
+# cancellation against the far-end playback, DC-removal highpass, noise gate.
+
+CAPTURE_KERNEL = Kernel(
+    "capture_chain", "ac_capture_chain", "asciichat_tpu_torch/csrc/capture.cu",
+    "asciichat_tpu/ops/audio.py:474")
+
+# K5's stages, a bit each (csrc/capture.cu kStage*)
+STAGE_AEC, STAGE_HIGHPASS, STAGE_GATE = 1, 2, 4
+MAX_TAPS = 1024  # K5 holds 32 weights a lane
+MAX_CAPTURE_SAMPLES = 3072  # K5 keeps a frame's history in 48 KB of shared memory
+
+# CaptureConsts of csrc/capture.cu, in its field order.
+CAPTURE_CONSTS = ("mu", "geigel_t", "norm_eps", "hp_alpha", "gate_threshold",
+                  "gate_threshold_open", "gate_attack", "gate_release", "inv_n")
+NORM_EPS = 1e-6  # NLMS regulariser (audio.py:410)
+
+
+def _gate_coeffs(attack_s: float, release_s: float, sample_rate: float) -> tuple[float, float]:
+    """1 - exp(-1/(tau*sr + eps)) for attack and release (audio.py:262-263)."""
+    return (1.0 - math.exp(-1.0 / (attack_s * sample_rate + 1e-12)),
+            1.0 - math.exp(-1.0 / (release_s * sample_rate + 1e-12)))
+
+
+def highpass_alpha(cutoff_hz: float, sample_rate: float = SAMPLE_RATE) -> float:
+    return 1.0 / (1.0 + 2.0 * math.pi * cutoff_hz / sample_rate)
+
+
+def _f32(value, device) -> torch.Tensor:
+    """A Python float rounded once to a float32 scalar, as JAX's weak typing
+    rounds it."""
+    return torch.tensor(float(value), dtype=torch.float32, device=device)
+
+
+def noise_gate_reference(buf, envelope, gate_open, threshold: float = 0.01,
+                         attack_s: float = 0.010, release_s: float = 0.050,
+                         hysteresis: float = 0.9, sample_rate: int = SAMPLE_RATE):
+    """Plain version of :func:`noise_gate`: buf [..., N] -> (gated buf,
+    envelope, gate_open), a loop over the samples (audio.py:251-278). The
+    gate decides on the buffer's peak, with hysteresis; the envelope's update
+    ``env + coeff * (target - env)`` is one fused multiply-add, as XLA
+    compiles it: taken in float64, where the product of two float32s is
+    exact, and rounded once."""
+    attack_c, release_c = _gate_coeffs(attack_s, release_s, sample_rate)
+    dev = buf.device
+    thr_closed, thr_open = _f32(threshold, dev), _f32(threshold * hysteresis, dev)
+    attack, release = _f32(attack_c, dev), _f32(release_c, dev)
+    peak = torch.amax(torch.abs(buf), dim=-1)
+    env, is_open = envelope, gate_open
+    outs = []
+    for x in torch.unbind(buf, dim=-1):
+        thr = torch.where(is_open, thr_open, thr_closed)
+        target = (peak > thr).to(torch.float32)
+        is_open = target > 0.5
+        coeff = torch.where(target > env, attack, release)
+        env = (coeff.double() * (target - env).double() + env.double()).float()
+        outs.append(x * env)
+    return (torch.stack(outs, dim=-1) if outs else buf.clone()), env, is_open
+
+
+def highpass_reference(buf, prev_in, prev_out, alpha):
+    """Plain version of :func:`highpass`: y[n] = alpha * (y[n-1] + x[n] -
+    x[n-1]) over buf [..., N] (audio.py:285-295), alpha in float32."""
+    a = _f32(alpha, buf.device)
+    pin, pout = prev_in, prev_out
+    outs = []
+    for x in torch.unbind(buf, dim=-1):
+        y = a * ((pout + x) - pin)
+        pin, pout = x, y
+        outs.append(y)
+    return (torch.stack(outs, dim=-1) if outs else buf.clone()), pin, pout
+
+
+def echo_cancel_reference(mic, far, weights, far_tail, hang, taps: int = 256,
+                          mu: float = 0.5, geigel_t: float = 0.5, hangover: int = 1440):
+    """Plain version of :func:`echo_cancel` (audio.py:379-421): mic, far [N]
+    -> (echo-cancelled mic [N], weights, far_tail, hang, stats [3]).
+
+    NLMS ``w += mu * e * x / (x.x + 1e-6)`` per sample over the window of
+    the last ``taps`` far samples, which ends at the current one; adaptation
+    freezes while the Geigel detector (|mic| > geigel_t * max|x|) and its
+    hangover hold. The window's peak and energy and the hangover do not
+    depend on the weights, so they are taken for all samples at once; the
+    weights then run the literal per-sample loop. stats: [frozen fraction
+    (the count times float32(1/N), as jnp.mean takes it), sum(out^2),
+    sum(mic^2)]."""
+    n = mic.shape[0]
+    far_hist = torch.cat([far_tail, far])  # [taps + N]
+    windows = far_hist.unfold(0, taps, 1)[1:]  # [N, taps]: row i ends at far[i]
+    dt = (torch.abs(mic) > geigel_t * torch.amax(torch.abs(windows), dim=1)).tolist()
+    norms = torch.sum(windows * windows, dim=1) + NORM_EPS
+    h = int(hang)
+    adapt = []
+    for d in dt:
+        h = hangover if d else max(h - 1, 0)
+        adapt.append(h == 0)
+    adapt = torch.tensor(adapt, dtype=torch.float32, device=mic.device)
+    gains = (adapt * mu).unbind()
+    w = weights
+    outs = []
+    for x, m, g, norm in zip(windows.unbind(), mic.unbind(), gains, norms.unbind()):
+        e = m - torch.dot(w, x)
+        w = w + g * e * x / norm
+        outs.append(e)
+    out = torch.stack(outs) if outs else mic.clone()
+    frozen = torch.sum(1.0 - adapt) * _f32(1.0 / max(n, 1), mic.device)
+    stats = torch.stack([frozen, torch.sum(out * out), torch.sum(mic * mic)])
+    return (out, w, far_hist[-taps:].clone(),
+            torch.tensor(h, dtype=torch.int32, device=mic.device), stats)
+
+
+def capture_chain_reference(mic, far, weights, far_tail, hang, hp_in, hp_out, gate_env,
+                            gate_open, hp_alpha, *, use_aec: bool, taps: int, mu: float,
+                            geigel_t: float, hangover: int, gate_threshold: float):
+    """Plain version of :func:`capture_chain`: echo cancellation (when
+    ``use_aec``), highpass, noise gate (audio.py:474-494). Returns (out,
+    weights, far_tail, hang, hp_in, hp_out, gate_env, gate_open, stats)."""
+    if use_aec:
+        x, weights, far_tail, hang, stats = echo_cancel_reference(
+            mic, far, weights, far_tail, hang, taps=taps, mu=mu, geigel_t=geigel_t,
+            hangover=hangover)
+    else:
+        x, stats = mic, torch.zeros(3, dtype=torch.float32, device=mic.device)
+    x, hp_in, hp_out = highpass_reference(x, hp_in, hp_out, hp_alpha)
+    x, gate_env, gate_open = noise_gate_reference(x, gate_env, gate_open,
+                                                  threshold=gate_threshold)
+    return x, weights, far_tail, hang, hp_in, hp_out, gate_env, gate_open, stats
+
+
+@functools.lru_cache(maxsize=64)
+def capture_consts(n: int, mu: float = 0.0, geigel_t: float = 0.0, hp_alpha: float = 0.0,
+                   gate_threshold: float = 0.0, attack_s: float = 0.010,
+                   release_s: float = 0.050, hysteresis: float = 0.9,
+                   sample_rate: int = SAMPLE_RATE) -> np.ndarray:
+    """K5's float32 parameters for an N-sample frame, read-only: each the
+    Python-float expression of the reference rounded once to float32."""
+    attack_c, release_c = _gate_coeffs(attack_s, release_s, sample_rate)
+    values = {"mu": mu, "geigel_t": geigel_t, "norm_eps": NORM_EPS, "hp_alpha": hp_alpha,
+              "gate_threshold": gate_threshold,
+              "gate_threshold_open": gate_threshold * hysteresis,
+              "gate_attack": attack_c, "gate_release": release_c, "inv_n": 1.0 / max(n, 1)}
+    out = np.array([values[k] for k in CAPTURE_CONSTS], np.float32)
+    out.flags.writeable = False
+    return out
+
+
+# K5's carried state, in its argument order: weights [taps] and far_tail
+# [taps] float32, hang int32, hp_in, hp_out and gate_env float32, gate_open
+# bool (each scalar a 0-d tensor); None for a stage that does not run.
+_STATE = (("weights", torch.float32), ("far_tail", torch.float32), ("hang", torch.int32),
+          ("hp_in", torch.float32), ("hp_out", torch.float32), ("gate_env", torch.float32),
+          ("gate_open", torch.bool))
+_STAGE_OF = (STAGE_AEC, STAGE_AEC, STAGE_AEC, STAGE_HIGHPASS, STAGE_HIGHPASS, STAGE_GATE,
+             STAGE_GATE)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def capture_launch(stages: int, mic: torch.Tensor, far: torch.Tensor | None, state: tuple,
+                   consts: np.ndarray, taps: int = 0, hangover: int = 0,
+                   buf: torch.Tensor | None = None, new_state: tuple | None = None):
+    """One K5 launch over an N-sample frame on the current stream: the
+    ``stages`` (STAGE_* bits) in the order AEC, highpass, gate. Returns
+    ``buf`` (float32 [N + 3]: the output, then the AEC's stats, zeros
+    without it) and the new state. ``new_state`` may be ``state`` itself:
+    the kernel reads all of its state before it writes any."""
+    dev = mic.device
+    check_tensor(mic, "mic", torch.float32, (None,), dev)
+    n = mic.shape[0]
+    if not 1 <= n <= MAX_CAPTURE_SAMPLES:
+        raise ValueError(f"mic: {n} samples, K5 takes 1 to {MAX_CAPTURE_SAMPLES}")
+    if stages & STAGE_AEC:
+        if not 1 <= taps <= MAX_TAPS:
+            raise ValueError(f"taps={taps}, K5 takes 1 to {MAX_TAPS}")
+        check_tensor(far, "far", torch.float32, (n,), dev)
+    for (name, dtype), stage, t in zip(_STATE, _STAGE_OF, state):
+        if stages & stage:
+            check_tensor(t, name, dtype, (taps,) if name in ("weights", "far_tail") else (), dev)
+    if consts.dtype != np.float32 or consts.shape != (len(CAPTURE_CONSTS),):
+        raise ValueError(f"consts: {consts.dtype} {consts.shape}, expected "
+                         f"float32 ({len(CAPTURE_CONSTS)},)")
+    state = tuple(t if stages & stage else None for stage, t in zip(_STAGE_OF, state))
+    if new_state is None:
+        new_state = tuple(None if t is None else torch.empty_like(t) for t in state)
+    if buf is None:
+        buf = torch.empty(n + 3, dtype=torch.float32, device=dev)
+    check_tensor(buf, "buf", torch.float32, (None,), dev)
+    if buf.shape[0] < n + 3:
+        raise ValueError(f"buf: {buf.shape[0]} floats, K5 writes {n + 3}")
+    with torch.cuda.device(dev):
+        CAPTURE_KERNEL(mic.data_ptr(), _ptr(far if stages & STAGE_AEC else None), n, taps,
+                       stages, hangover, *map(_ptr, state), consts.ctypes.data,
+                       buf.data_ptr(), *map(_ptr, new_state), stream_handle(dev))
+    return buf, new_state
+
+
+def noise_gate(buf, envelope, gate_open, threshold: float = 0.01, attack_s: float = 0.010,
+               release_s: float = 0.050, hysteresis: float = 0.9,
+               sample_rate: int = SAMPLE_RATE):
+    """Noise gate (mixer.c:846-924): the buffer's peak against the threshold
+    with hysteresis drives a one-pole envelope that scales each sample.
+    buf [N] (any [..., N] on the CPU) -> (out, envelope, gate_open). K5 on a
+    CUDA tensor, :func:`noise_gate_reference` on the CPU."""
+    if buf.device.type == "cpu":
+        return noise_gate_reference(buf, envelope, gate_open, threshold, attack_s,
+                                    release_s, hysteresis, sample_rate)
+    consts = capture_consts(buf.shape[-1], gate_threshold=threshold, attack_s=attack_s,
+                            release_s=release_s, hysteresis=hysteresis,
+                            sample_rate=sample_rate)
+    state = (None,) * 5 + (envelope, gate_open)
+    out, new = capture_launch(STAGE_GATE, buf, None, state, consts)
+    return out[:buf.shape[-1]], new[5], new[6]
+
+
+def highpass(buf, prev_in, prev_out, alpha):
+    """One-pole highpass y[n] = alpha * (y[n-1] + x[n] - x[n-1])
+    (mixer.c:953-965): buf [N] (any [..., N] on the CPU) -> (out, prev_in,
+    prev_out). K5 on a CUDA tensor, :func:`highpass_reference` on the CPU."""
+    if buf.device.type == "cpu":
+        return highpass_reference(buf, prev_in, prev_out, alpha)
+    consts = capture_consts(buf.shape[-1], hp_alpha=float(alpha))
+    state = (None,) * 3 + (prev_in, prev_out) + (None,) * 2
+    out, new = capture_launch(STAGE_HIGHPASS, buf, None, state, consts)
+    return out[:buf.shape[-1]], new[3], new[4]
+
+
+def echo_cancel(mic, far, weights, far_tail, hang, taps: int = 256, mu: float = 0.5,
+                geigel_t: float = 0.5, hangover: int = 1440):
+    """NLMS echo cancellation with a Geigel double-talk freeze
+    (:func:`echo_cancel_reference` says what it computes): mic, far [N] ->
+    (out [N], weights, far_tail, hang, stats [3]). K5 on a CUDA tensor."""
+    if mic.device.type == "cpu":
+        return echo_cancel_reference(mic, far, weights, far_tail, hang, taps, mu, geigel_t,
+                                     hangover)
+    n = mic.shape[0]
+    consts = capture_consts(n, mu=mu, geigel_t=geigel_t)
+    state = (weights, far_tail, hang) + (None,) * 4
+    buf, new = capture_launch(STAGE_AEC, mic, far, state, consts, taps, hangover)
+    return buf[:n], new[0], new[1], new[2], buf[n:n + 3]
+
+
+def capture_chain(mic, far, weights, far_tail, hang, hp_in, hp_out, gate_env, gate_open,
+                  hp_alpha, *, use_aec: bool, taps: int, mu: float, geigel_t: float,
+                  hangover: int, gate_threshold: float):
+    """The client's capture chain on one frame, the counterpart of
+    ``_client_pipeline_step`` (audio.py:474-494): echo cancellation (when
+    ``use_aec``), highpass, noise gate. One K5 launch on a CUDA tensor,
+    :func:`capture_chain_reference` on the CPU. Returns (out, weights,
+    far_tail, hang, hp_in, hp_out, gate_env, gate_open, stats); without the
+    AEC its state passes through and the stats are zeros."""
+    args = dict(use_aec=use_aec, taps=taps, mu=mu, geigel_t=geigel_t, hangover=hangover,
+                gate_threshold=gate_threshold)
+    state = (weights, far_tail, hang, hp_in, hp_out, gate_env, gate_open)
+    if mic.device.type == "cpu":
+        return capture_chain_reference(mic, far, *state, hp_alpha, **args)
+    n = mic.shape[0]
+    buf, new = _capture_chain_cuda(mic, far, state, hp_alpha, **args)
+    return (buf[:n], *new, buf[n:n + 3])
+
+
+def _capture_chain_cuda(mic, far, state: tuple, hp_alpha, *, use_aec: bool, taps: int,
+                        mu: float, geigel_t: float, hangover: int, gate_threshold: float,
+                        buf=None, new_state: tuple | None = None):
+    """:func:`capture_chain`'s one K5 launch -> (buf [N + 3], new state);
+    without the AEC its state passes through."""
+    stages = STAGE_HIGHPASS | STAGE_GATE | (STAGE_AEC if use_aec else 0)
+    consts = capture_consts(mic.shape[0], mu=mu, geigel_t=geigel_t, hp_alpha=float(hp_alpha),
+                            gate_threshold=gate_threshold)
+    buf, new = capture_launch(stages, mic, far, state, consts, taps if use_aec else 0,
+                              hangover, buf=buf, new_state=new_state)
+    return buf, (new if use_aec else state[:3] + new[3:])
+
+
+class EchoCanceller:
+    """Stateful per-tick echo cancellation (client pipeline): NLMS with the
+    Geigel double-talk freeze (:func:`echo_cancel`) and frame-level
+    divergence control (here), its state on ``device``
+    (``runtime/device.default_device()`` when None)."""
+
+    def __init__(self, taps: int = 256, mu: float = 0.5, geigel_t: float = 0.5,
+                 hangover: int = 1440, device: torch.device | str | None = None):
+        self.device = default_device() if device is None else torch.device(device)
+        self.taps = taps
+        self.mu = mu
+        self.geigel_t = geigel_t
+        self.hangover = hangover
+        self.weights = torch.zeros(taps, dtype=torch.float32, device=self.device)
+        self.far_tail = torch.zeros(taps, dtype=torch.float32, device=self.device)
+        self.hang = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.double_talk_frac = 0.0  # last frame's frozen-sample fraction
+        self.divergence_resets = 0
+
+    def process(self, mic, far) -> torch.Tensor:
+        def on_device(a):
+            return torch.from_numpy(np.array(a, np.float32).ravel()).to(self.device)
+
+        out, self.weights, self.far_tail, self.hang, stats = echo_cancel(
+            on_device(mic), on_device(far), self.weights, self.far_tail, self.hang,
+            taps=self.taps, mu=self.mu, geigel_t=self.geigel_t, hangover=self.hangover)
+        dt_frac, out_e, mic_e = stats.tolist()  # one fetch for the frame's telemetry
+        self.double_talk_frac = dt_frac
+        self.apply_divergence_control(out_e, mic_e)
+        return out
+
+    def apply_divergence_control(self, out_e: float, mic_e: float) -> bool:
+        """A healthy canceller removes energy; a residual well above the mic
+        means the echo model is wrong (the path changed, or it froze
+        mid-adaptation): halve the weights, in place, which bounds the output
+        and keeps the echo path's shape (audio.py:456-464). Returns whether
+        it halved them."""
+        if out_e > 2.0 * mic_e + 1e-9:
+            self.weights.mul_(0.5)
+            self.divergence_resets += 1
+            return True
+        return False
+
+
+class _CardIO:
+    """The pinned host buffers, device buffers, stream and event of a
+    pipeline on a card, for frames of up to ``cap`` samples."""
+
+    def __init__(self, device: torch.device, cap: int):
+        self.cap = cap
+        self.host_in = torch.empty(2 * cap, dtype=torch.float32, pin_memory=True)
+        self.host_out = torch.empty(cap + 3, dtype=torch.float32, pin_memory=True)
+        self.host_in_np = self.host_in.numpy()
+        self.host_out_np = self.host_out.numpy()
+        with torch.cuda.device(device):
+            self.dev_in = torch.empty(2 * cap, dtype=torch.float32, device=device)
+            self.dev_out = torch.empty(cap + 3, dtype=torch.float32, device=device)
+            self.stream = torch.cuda.Stream(device)
+            self.done = torch.cuda.Event()
+
+
+class ClientAudioPipeline:
+    """Stateful per-client capture chain (src/client/audio.c:276 capture
+    path): AEC first (the echo estimate must see the raw mic), then the
+    highpass, then the gate (client_pipeline.cpp: AEC3 -> filters -> gate).
+
+    The state lives on ``device`` (``runtime/device.default_device()`` when
+    None: the card, unless ASCIICHAT_TORCH_DEVICE=cpu). On a card each frame
+    is one host-to-device copy of the mic and far-end samples from pinned
+    memory, one K5 launch that updates the state in place, and one
+    device-to-host copy of the output and the AEC's stats, on a stream of the
+    pipeline's own; on the CPU it runs the plain versions."""
+
+    def __init__(self, use_aec: bool = True, gate_threshold: float = 0.01,
+                 highpass_hz: float = 100.0, device: torch.device | str | None = None):
+        self.device = default_device() if device is None else torch.device(device)
+        self.aec = EchoCanceller(device=self.device) if use_aec else None
+        self.gate_threshold = gate_threshold
+        self.hp_alpha = highpass_alpha(highpass_hz)  # (mixer.c:953)
+
+        def zero(dtype):
+            return torch.zeros((), dtype=dtype, device=self.device)
+
+        self.hp_in = zero(torch.float32)
+        self.hp_out = zero(torch.float32)
+        self.gate_env = zero(torch.float32)
+        self.gate_open = zero(torch.bool)
+        # far-end FIFO of whole chunks, bounded to 1 s, drop-oldest: the far
+        # reference must stay aligned to the most recent playback. add_far
+        # runs on the receive (event-loop) thread while process runs in the
+        # capture executor, so both hold the lock.
+        self._far_chunks: collections.deque = collections.deque()
+        self._far_len = 0
+        self._far_lock = threading.Lock()
+        self._io: _CardIO | None = None
+
+    def add_far(self, buf: np.ndarray) -> None:
+        """Feed received playback audio as the AEC far-end reference; bounded
+        to 1 s so a stalled playback path cannot grow it without limit."""
+        chunk = np.asarray(buf, np.float32).ravel()
+        if not len(chunk):
+            return
+        with self._far_lock:
+            self._far_chunks.append(chunk)
+            self._far_len += len(chunk)
+            while (self._far_chunks
+                   and self._far_len - len(self._far_chunks[0]) >= SAMPLE_RATE):
+                self._far_len -= len(self._far_chunks.popleft())
+
+    def _take_far(self, n: int) -> np.ndarray:
+        """Pop n far-end samples FIFO, zero-padded on underrun: consuming what
+        exists keeps the reference causally aligned (padding without
+        consuming would shift it a frame behind the mic for good)."""
+        out = np.zeros(n, np.float32)
+        at = 0
+        with self._far_lock:
+            while at < n and self._far_chunks:
+                head = self._far_chunks[0]
+                take = min(n - at, len(head))
+                out[at: at + take] = head[:take]
+                at += take
+                if take == len(head):
+                    self._far_chunks.popleft()
+                else:
+                    self._far_chunks[0] = head[take:]
+                self._far_len -= take
+        return out
+
+    def _state(self) -> tuple:
+        aec = self.aec
+        if aec is None:
+            empty = torch.zeros(0, dtype=torch.float32, device=self.device)
+            head = (empty, empty, torch.zeros((), dtype=torch.int32, device=self.device))
+        else:
+            head = (aec.weights, aec.far_tail, aec.hang)
+        return head + (self.hp_in, self.hp_out, self.gate_env, self.gate_open)
+
+    def _chain_args(self) -> dict:
+        aec = self.aec
+        if aec is None:
+            return dict(use_aec=False, taps=1, mu=0.0, geigel_t=0.0, hangover=0,
+                        gate_threshold=self.gate_threshold)
+        return dict(use_aec=True, taps=aec.taps, mu=aec.mu, geigel_t=aec.geigel_t,
+                    hangover=aec.hangover, gate_threshold=self.gate_threshold)
+
+    def _process_card(self, mic: np.ndarray, far: np.ndarray) -> tuple[np.ndarray, list]:
+        n = len(mic)
+        if self._io is None or self._io.cap < n:
+            self._io = _CardIO(self.device, n)
+        io = self._io
+        io.host_in_np[:n] = mic
+        io.host_in_np[n:2 * n] = far
+        state = self._state()
+        with torch.cuda.device(self.device), torch.cuda.stream(io.stream):
+            # state written on the default stream (the zeros made at
+            # construction, a state loaded since) lands before the launch
+            io.stream.wait_stream(torch.cuda.default_stream(self.device))
+            io.dev_in[:2 * n].copy_(io.host_in[:2 * n], non_blocking=True)
+            # the new state over the old: K5 reads all of it before it writes
+            _capture_chain_cuda(io.dev_in[:n], io.dev_in[n:2 * n], state, self.hp_alpha,
+                                **self._chain_args(), buf=io.dev_out, new_state=state)
+            io.host_out[:n + 3].copy_(io.dev_out[:n + 3], non_blocking=True)
+            io.done.record(io.stream)
+        io.done.synchronize()
+        return io.host_out_np[:n].copy(), io.host_out_np[n:n + 3].tolist()
+
+    def _process_plain(self, mic: np.ndarray, far: np.ndarray) -> tuple[np.ndarray, list]:
+        (out, w, ft, hg, self.hp_in, self.hp_out, self.gate_env, self.gate_open,
+         stats) = capture_chain_reference(torch.from_numpy(mic), torch.from_numpy(far),
+                                          *self._state(), self.hp_alpha,
+                                          **self._chain_args())
+        if self.aec is not None:
+            self.aec.weights, self.aec.far_tail, self.aec.hang = w, ft, hg
+        return out.numpy(), stats.tolist()
+
+    def process(self, mic: np.ndarray) -> np.ndarray:
+        """One captured frame -> the processed frame (float32 numpy)."""
+        mic = np.array(mic, np.float32).ravel()
+        aec = self.aec
+        # underruns zero-pad AFTER consuming what exists (see _take_far)
+        far = self._take_far(len(mic)) if aec is not None else np.zeros(len(mic), np.float32)
+        if self.device.type == "cpu":
+            out, stats = self._process_plain(mic, far)
+        else:
+            out, stats = self._process_card(mic, far)
+        if aec is not None:
+            aec.double_talk_frac = stats[0]
+            if self.device.type == "cpu":
+                aec.apply_divergence_control(stats[1], stats[2])
+            else:  # on the pipeline's stream, and done before the frame returns
+                io = self._io
+                with torch.cuda.device(self.device), torch.cuda.stream(io.stream):
+                    if aec.apply_divergence_control(stats[1], stats[2]):
+                        io.done.record(io.stream)
+                        io.done.synchronize()
+        return out

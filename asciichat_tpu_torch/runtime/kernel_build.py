@@ -60,6 +60,7 @@ ENTRY_POINTS: dict[str, list] = {
     "ac_render_groups": [_P, _P, _I, _P],
     "ac_mixer": [_P, _P, _I, _I64, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                  _P, _P],
+    "ac_capture_chain": [_P, _P, _I, _I, _I, _I, *[_P] * 7, _P, _P, *[_P] * 7, _P],
 }
 
 

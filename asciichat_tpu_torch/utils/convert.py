@@ -9,7 +9,11 @@ JAX package's ``RenderGroup`` (``np.asarray`` of its fields), and
 :func:`to_torch` places them on a device, so both packages can compute from
 identical state. The audio mixer carries state from tick to tick: its four
 float32 vectors (``MixerState.astuple()``, as numpy) go across through
-:func:`mixer_state`, so both packages continue the same trajectory.
+:func:`mixer_state`, so both packages continue the same trajectory. The
+client's capture chain carries its echo canceller's weights and far-end tail,
+the hangover, the highpass's last input and output and the gate's envelope
+and state: :func:`capture_state` reads them from a capture pipeline and
+:func:`load_capture_state` sets them on the port's.
 """
 
 from __future__ import annotations
@@ -73,3 +77,48 @@ def mixer_state(state: tuple, device: torch.device | str) -> tuple[torch.Tensor,
             raise ValueError(f"{name}: {a.dtype} {a.shape}, expected 1-D float32")
         out.append(torch.from_numpy(np.array(a)).to(device))
     return tuple(out)
+
+
+# A client capture pipeline's carried state, by name, with the dtype each
+# array must have; the first three belong to the echo canceller.
+CAPTURE_STATE: dict[str, np.dtype] = {
+    "weights": np.dtype(np.float32),
+    "far_tail": np.dtype(np.float32),
+    "hang": np.dtype(np.int32),
+    "hp_in": np.dtype(np.float32),
+    "hp_out": np.dtype(np.float32),
+    "gate_env": np.dtype(np.float32),
+    "gate_open": np.dtype(bool),
+}
+AEC_STATE = ("weights", "far_tail", "hang")
+
+
+def capture_state(pipeline, device: torch.device | str) -> dict:
+    """The carried state of a ``ClientAudioPipeline`` (the JAX package's, or
+    any object with its attributes), read as numpy -> tensors on ``device``
+    by CAPTURE_STATE name, plus the echo canceller's ``divergence_resets``.
+    Without an echo canceller only the filters' state is read."""
+    aec = pipeline.aec
+    out: dict = {}
+    for name, want in CAPTURE_STATE.items():
+        owner = aec if name in AEC_STATE else pipeline
+        if owner is None:
+            continue
+        a = np.asarray(getattr(owner, name))
+        if a.dtype != want:
+            raise ValueError(f"{name}: dtype {a.dtype}, expected {want}")
+        out[name] = torch.from_numpy(np.array(a)).to(device)
+    if aec is not None:
+        out["divergence_resets"] = int(aec.divergence_resets)
+    return out
+
+
+def load_capture_state(pipeline, state: dict) -> None:
+    """Set :func:`capture_state`'s result on the port's ``ClientAudioPipeline``
+    (on its device); the far-end FIFO is host data and is not part of it."""
+    if (pipeline.aec is None) != ("weights" not in state):
+        raise ValueError("the state and the pipeline differ in having an echo canceller")
+    for name, value in state.items():
+        owner = pipeline.aec if name in AEC_STATE or name == "divergence_resets" else pipeline
+        setattr(owner, name, value if name == "divergence_resets"
+                else value.to(pipeline.device))

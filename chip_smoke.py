@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render path, audio mixer and live server once on
-one NVIDIA card and check them.
+"""Drive the PyTorch port's render path, audio mixer, live server and client
+once on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -44,10 +44,26 @@ so the exit code is non-zero:
     failed device tick, and K3's and K4's launches in the server process
     (counted by their wrappers from the process's start), with the video
     and audio ticks' latency;
-12. the kernels, their launches on each path, their times against the
+12. K5 (the client's capture chain: echo canceller, highpass, noise gate)
+    against the plain ``capture_chain_reference`` over 300 carried frames
+    at 256 taps x 480 samples (echo only, a flipped echo path that makes
+    divergence control halve the weights, double talk, echo only again, a
+    far-end underrun, silence that closes the gate), then at 1, 100 and 960
+    samples, and without the AEC bit for bit; timed eager, device-only and
+    plain;
+13. the live client: the port's ``AsciiChatClient`` in this process, on the
+    card, against a server subprocess as phase 11 starts it, sends an
+    800x600 picture and a 440 Hz tone (500 frames): its frames are
+    byte-identical to the oracle, a raw client hears the tone, and K5's
+    launches equal the audio frames it sent, none failed; then
+    ``python -m asciichat_tpu_torch.apps.main client`` with the picture on
+    stdin and a tone exits 0 after 20 frames, the last byte-identical to the
+    oracle;
+14. the kernels, their launches on each path, their times against the
     plain versions and their bounds, as one JSON line. A kernel's
     ``launches`` is the count on its user-facing path: the mirror (phase 6)
-    for K1 and K2, the live server (phase 11) for K3 and K4;
+    for K1 and K2, the live server (phase 11) for K3 and K4, the live client
+    (phase 13) for K5;
     ``launches_by_path`` holds every path's own count. ``ms`` is the eager
     time (CUDA events around back-to-back wrapper calls), ``device_ms`` the
     device-only time (calls replayed from one CUDA graph); K3's entry adds
@@ -64,22 +80,26 @@ so the exit code is non-zero:
     is one PyTorch call that computes the same function (K1:
     ``frames[:, sy[:, None], sx]``; ``library_device_ms`` its device-only
     time), timed here and used nowhere in the port; no single PyTorch call
-    computes K2, K3 or K4, so theirs is null.
+    computes K2, K3, K4 or K5, so theirs is null.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Records are compared exactly (tolerance 0: every record is uint8); the
 mixer's float32 mixes within rtol=2e-4, atol=2e-5, the bound
-tests/test_audio.py holds the JAX mixer to.
+tests/test_audio.py holds the JAX mixer to, and so are K5's output and
+weights (its NLMS dot products sum in another order), its far tail,
+hangover, gate state and frozen fraction exactly.
 """
 
 from __future__ import annotations
 
 import asyncio
+import io
 import json
 import os
 import socket
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 from pathlib import Path
@@ -87,7 +107,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from asciichat_tpu_torch.apps.client import AsciiChatClient
 from asciichat_tpu_torch.models import server
+from asciichat_tpu_torch.models.session import DisplaySink
 from asciichat_tpu_torch.net import packet as pkt
 from asciichat_tpu_torch.net import protocol as proto
 from asciichat_tpu_torch.net.transport import connect_tcp
@@ -96,6 +118,7 @@ from asciichat_tpu_torch.render import emitter, oracle, palette
 from asciichat_tpu_torch.render.pipeline import AsciiRenderer, plan_render
 from asciichat_tpu_torch.render.types import ColorLevel, RenderMode, TerminalCapabilities
 from asciichat_tpu_torch.runtime import kernel_build
+from asciichat_tpu_torch.runtime.audiodev import ToneSource
 from asciichat_tpu_torch.runtime.device import require_cuda
 from asciichat_tpu_torch.runtime.framesource import TestPatternSource
 
@@ -135,11 +158,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SECTOR = 32  # bytes: the unit in which the card reads device memory
 
+CAPTURE_FRAMES = 300  # phase 12's carried frames at full width
+CAPTURE_ARGS = dict(use_aec=True, taps=256, mu=0.5, geigel_t=0.5, hangover=1440,
+                    gate_threshold=0.01)  # the one chain the client builds
+CLIENT_AUDIO_FRAMES = 500  # the live client's tone: 5 s of 10 ms frames
+CLI_FRAMES = 20
+
 KERNELS = (resize.RESIZE_KERNEL, cells.CELL_RECORDS_KERNEL,
-           server.RENDER_GROUP_KERNEL, audio.MIXER_KERNEL)
-# the path whose launches a kernel's `launches` reports (see phase 12)
+           server.RENDER_GROUP_KERNEL, audio.MIXER_KERNEL, audio.CAPTURE_KERNEL)
+# the path whose launches a kernel's `launches` reports (see phase 14)
 MAIN_PATH = {"resize_nn": "mirror", "cell_records": "mirror",
-             "render_group": "live_server", "mixer": "live_server"}
+             "render_group": "live_server", "mixer": "live_server",
+             "capture_chain": "live_client"}
 
 CARD = ""  # "name, power limit" of the card, set in phase 1
 
@@ -931,10 +961,69 @@ async def live_session(port: int, pictures: list[np.ndarray], wants: list[bytes]
             await c.t.close()
 
 
+class ServerProcess:
+    """``python -m asciichat_tpu_torch.apps.main server`` in a subprocess on
+    the card (ASCIICHAT_TORCH_DEVICE unset), its log in ``build/``; entered,
+    it waits until the server accepts; left on an error, it prints the log's
+    tail; it always stops the server."""
+
+    def __init__(self, log_name: str):
+        self.port, self.inspect_port = free_port(), free_port()
+        self.log_path = ROOT / "build" / log_name
+        self.proc = None
+
+    def __enter__(self) -> "ServerProcess":
+        self.log_path.parent.mkdir(parents=True, exist_ok=True)
+        env = dict(os.environ)
+        env.pop("ASCIICHAT_TORCH_DEVICE", None)  # the server's default device: the card
+        cmd = [sys.executable, "-m", "asciichat_tpu_torch.apps.main", "server", "--host",
+               "127.0.0.1", "--port", str(self.port), "--inspect-port",
+               str(self.inspect_port), "--log-level", "WARNING"]
+        with open(self.log_path, "wb") as log:
+            self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log, stderr=log)
+        try:
+            t0 = time.monotonic()
+            while True:
+                self.check()
+                try:
+                    socket.create_connection(("127.0.0.1", self.port), timeout=1).close()
+                    break
+                except OSError:
+                    if time.monotonic() - t0 > LIVE_WAIT_S:
+                        raise RuntimeError("server never accepted a connection") from None
+                    time.sleep(0.1)
+            say(f"  server accepting after {time.monotonic() - t0:.1f} s")
+        except BaseException:
+            self.__exit__(*sys.exc_info())
+            raise
+        return self
+
+    def check(self) -> None:
+        if self.proc.poll() is not None:
+            raise RuntimeError(f"server exited {self.proc.returncode}")
+
+    def state(self) -> dict:
+        """The inspector's /state/server."""
+        url = f"http://127.0.0.1:{self.inspect_port}/state/server"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return json.loads(r.read())
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None:
+            self.proc.kill()
+            say(f"  server log:\n{self.log_path.read_text(errors='replace')[-4000:]}")
+        else:
+            self.proc.terminate()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
 def phase11_live_server() -> dict[str, int]:
     say("phase 11: live server, python -m asciichat_tpu_torch.apps.main server, "
         f"{len(LIVE_FILTERS)} plaintext TCP clients")
-    port, inspect_port = free_port(), free_port()
     rng = np.random.default_rng(31)
     pictures = [rng.integers(0, 256, (UPLINK_H, UPLINK_W, 3), dtype=np.uint8)
                 for _ in LIVE_FILTERS]
@@ -944,45 +1033,10 @@ def phase11_live_server() -> dict[str, int]:
     wants = [oracle.ascii_convert_with_capabilities(
         filters.apply_color_filter_reference(comp, name), TERM_W, 2 * TERM_H, HB_TRUECOLOR)
         for name in LIVE_FILTERS]
-    log_path = ROOT / "build" / "chip_smoke_server.log"
-    log_path.parent.mkdir(parents=True, exist_ok=True)
-    env = dict(os.environ)
-    env.pop("ASCIICHAT_TORCH_DEVICE", None)  # the server's default device: the card
-    cmd = [sys.executable, "-m", "asciichat_tpu_torch.apps.main", "server", "--host",
-           "127.0.0.1", "--port", str(port), "--inspect-port", str(inspect_port),
-           "--log-level", "WARNING"]
-    with open(log_path, "wb") as log:
-        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log, stderr=log)
-    try:
-        t0 = time.monotonic()
-        while True:
-            if proc.poll() is not None:
-                raise RuntimeError(f"server exited {proc.returncode}")
-            try:
-                socket.create_connection(("127.0.0.1", port), timeout=1).close()
-                break
-            except OSError:
-                if time.monotonic() - t0 > LIVE_WAIT_S:
-                    raise RuntimeError("server never accepted a connection") from None
-                time.sleep(0.1)
-        say(f"  server accepting after {time.monotonic() - t0:.1f} s")
-        asyncio.run(live_session(port, pictures, wants))
-        url = f"http://127.0.0.1:{inspect_port}/state/server"
-        with urllib.request.urlopen(url, timeout=30) as r:
-            state = json.loads(r.read())
-        if proc.poll() is not None:
-            raise RuntimeError(f"server exited {proc.returncode}")
-    except BaseException:
-        proc.kill()
-        proc.wait(timeout=30)
-        say(f"  server log:\n{log_path.read_text(errors='replace')[-4000:]}")
-        raise
-    proc.terminate()
-    try:
-        proc.wait(timeout=30)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait(timeout=30)
+    with ServerProcess("chip_smoke_server.log") as srv:
+        asyncio.run(live_session(srv.port, pictures, wants))
+        state = srv.state()
+        srv.check()
     bad = []
     if not str(state.get("device", "")).startswith("cuda"):
         bad.append(f"device {state.get('device')!r}")
@@ -1008,6 +1062,294 @@ def phase11_live_server() -> dict[str, int]:
     # a fresh process: its counts ran from 0, and only the server launched
     return {server.RENDER_GROUP_KERNEL.name: state["render_launches"],
             audio.MIXER_KERNEL.name: state["mixer_launches"]}
+
+
+def capture_scenario(seed: int, frames: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """(mic, far) float32 [frames, n] from numpy: far-end noise through a
+    two-tap echo path (6 dB down, the Geigel detector's assumption) under a
+    noise floor; the path flipped for three frames at a sixth of the run
+    (the filter then adds energy: divergence control); near-end speech over
+    the echo in the middle third; one frame whose far end arrived half (the
+    rest zero, as the pipeline pads an underrun); three silent frames at the
+    end, which close the gate."""
+    rng = np.random.default_rng(seed)
+    total = frames * n
+    far = rng.normal(0, 0.2, total).astype(np.float32)
+    under = (frames // 2 + 1) * n
+    far[under + n // 2:under + n] = 0.0
+    path = np.zeros(11, np.float32)
+    path[8], path[10] = 0.4, 0.1
+    echo = np.convolve(far, path)[:total].astype(np.float32)
+    mic = echo + rng.normal(0, 0.02, total).astype(np.float32)
+    flip = slice(frames // 6 * n, min(frames // 6 + 3, frames) * n)
+    mic[flip] = -echo[flip] + rng.normal(0, 0.02, flip.stop - flip.start).astype(np.float32)
+    talk = slice(frames // 3 * n, 2 * frames // 3 * n)
+    t = np.arange(total)[talk] / audio.SAMPLE_RATE
+    mic[talk] += (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+    mic[(frames - 3) * n:] = 0.0
+    far[(frames - 3) * n:] = 0.0
+    return mic.reshape(frames, n), far.reshape(frames, n)
+
+
+def capture_state(taps: int, dev) -> tuple:
+    """A fresh chain state in capture_chain's order, on ``dev``."""
+    z = torch.zeros((), device=dev)
+    return (torch.zeros(taps, device=dev), torch.zeros(taps, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev), z, z, z,
+            torch.zeros((), dtype=torch.bool, device=dev))
+
+
+def diverged(state: list, stats: torch.Tensor) -> bool:
+    """EchoCanceller.apply_divergence_control on a chain state's weights."""
+    dt_frac, out_e, mic_e = stats.tolist()
+    if out_e > 2.0 * mic_e + 1e-9:
+        state[0] = state[0] * 0.5
+        return True
+    return False
+
+
+def capture_run(dev, mic: np.ndarray, far: np.ndarray, err: AudioErr, use_aec: bool = True,
+                taps: int = 256) -> int:
+    """K5 and the plain chain over the frames with the state carried and
+    divergence control between frames, each from its own stats; returns the
+    divergence events. Without the AEC every output is held bit for bit."""
+    alpha = audio.highpass_alpha(100.0)
+    args = dict(CAPTURE_ARGS, use_aec=use_aec, taps=taps)
+    k_state = p_state = capture_state(taps if use_aec else 0, dev)
+    events = 0
+    for t in range(len(mic)):
+        m, f = torch.from_numpy(mic[t]).to(dev), torch.from_numpy(far[t]).to(dev)
+        got, *k_new, k_stats = audio.capture_chain(m, f, *k_state, alpha, **args)
+        want, *p_new, p_stats = audio.capture_chain_reference(m, f, *p_state, alpha, **args)
+        label = f"K5 taps={taps} n={len(mic[t])} use_aec={use_aec} frame {t}"
+        if use_aec:
+            err.check(label, got, want)
+            err.check(f"{label} weights", k_new[0], p_new[0])
+            exact = [("far_tail", 1), ("hang", 2), ("gate_open", 6)]
+        else:
+            exact = [("out", None), ("hp_in", 3), ("hp_out", 4), ("gate_env", 5),
+                     ("gate_open", 6)]
+        for name, i in exact:
+            a, b = (got, want) if i is None else (k_new[i], p_new[i])
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: {name} differs")
+        if not torch.equal(k_stats[0], p_stats[0]):
+            raise AssertionError(f"{label}: frozen fraction {k_stats[0]} != {p_stats[0]}")
+        k_div, p_div = diverged(k_new, k_stats), diverged(p_new, p_stats)
+        if k_div != p_div:
+            raise AssertionError(f"{label}: divergence control decided differently")
+        events += k_div
+        k_state, p_state = tuple(k_new), tuple(p_new)
+    return events
+
+
+def capture_work(taps: int, n: int) -> dict:
+    """K5's bytes (mic and far, weights and far tail, the scalar state in;
+    output, stats, weights, tail and scalars out) and float ops: per sample
+    and tap 9 (w.x and x.x as multiply-adds, the window's |max|, the update's
+    multiply, divide and add), per sample ~30 more (reductions' tails, the
+    Geigel test, the highpass, the gate)."""
+    state = 4 * 2 * taps + 4 * 4 + 1
+    return work(4 * 2 * n + state, 4 * (n + 3) + state, float(n * (9 * taps + 30)))
+
+
+def phase12_capture(dev, err: AudioErr) -> dict:
+    n, taps = AUDIO_N, CAPTURE_ARGS["taps"]
+    say(f"phase 12: K5 capture chain vs plain capture_chain_reference, {CAPTURE_FRAMES} "
+        f"frames at {taps} taps x {n}")
+    mic, far = capture_scenario(12, CAPTURE_FRAMES, n)
+    events = capture_run(dev, mic, far, err)
+    if events < 1:
+        raise AssertionError("the flipped echo path made no divergence event")
+    say(f"  ok  {CAPTURE_FRAMES} carried frames ({events} divergence events, one underrun): "
+        f"max abs err {err.abs:.3g}, max rel err {err.rel:.3g}; far tail, hangover, gate "
+        "and frozen fraction exact")
+    for n_, frames in ((1, 300), (100, 40), (960, 24)):
+        capture_run(dev, *capture_scenario(20 + n_, frames, n_), err)
+        say(f"  ok  {frames} frames of {n_} samples")
+    for n_, frames in ((480, 30), (1, 200), (100, 30), (960, 12)):
+        capture_run(dev, *capture_scenario(40 + n_, frames, n_), err, use_aec=False)
+        say(f"  ok  without the AEC, {frames} frames of {n_} samples: bit-exact")
+    m, f = (torch.from_numpy(a[0]).to(dev) for a in capture_scenario(3, 1, n))
+    state = capture_state(taps, dev)
+    alpha = audio.highpass_alpha(100.0)
+    k = cuda_ms(lambda: audio.capture_chain(m, f, *state, alpha, **CAPTURE_ARGS), iters=50)
+    g = graph_ms(lambda: audio.capture_chain(m, f, *state, alpha, **CAPTURE_ARGS))
+    pl = cuda_ms(lambda: audio.capture_chain_reference(m, f, *state, alpha, **CAPTURE_ARGS),
+                 iters=3, warmup=1)
+    timing(f"K5 {taps} taps x {n}", k, pl, g)
+    return dict(ms=k, plain_ms=pl, device_ms=g, library_ms=None, **capture_work(taps, n))
+
+
+class StillSource:
+    """A frame source that shows one picture."""
+
+    def __init__(self, picture: np.ndarray):
+        self.picture = picture
+
+    def read(self) -> np.ndarray:
+        return self.picture
+
+    def close(self) -> None:
+        pass
+
+
+class LimitedTone:
+    """A 440 Hz ToneSource that ends after ``frames`` reads (the client's
+    audio task then stops by itself, so every launch has its send)."""
+
+    def __init__(self, frames: int):
+        self.tone = ToneSource(440.0, 0.2)
+        self.left = frames
+
+    def read(self, n: int) -> np.ndarray:
+        if self.left <= 0:
+            raise EOFError("the tone is over")
+        self.left -= 1
+        return self.tone.read(n)
+
+    def close(self) -> None:
+        pass
+
+
+async def live_client_session(port: int, picture: np.ndarray, want: bytes) -> dict:
+    """The port's client on the card against the server at ``port``, with a
+    raw listener; returns its counts and its capture chain's times."""
+    wire = proto.WireCapabilities(caps=HB_TRUECOLOR, width=TERM_W, height=TERM_H,
+                                  capabilities_mask=0x1)  # no compression: no zstandard
+    client = AsciiChatClient("127.0.0.1", port, StillSource(picture), wire, reconnect=False,
+                             audio_source=LimitedTone(CLIENT_AUDIO_FRAMES))
+    pipeline = client.audio_pipeline
+    if pipeline.device.type != "cuda":
+        raise AssertionError(f"the client's capture chain is on {pipeline.device}")
+    shown, process_ms = [], []
+    client.display = DisplaySink(stream=io.BytesIO())
+    client.display.write_frame = lambda frame: shown.append(bytes(frame))
+    process = pipeline.process
+
+    def timed(frame):
+        t0 = time.perf_counter()
+        out = process(frame)
+        process_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    pipeline.process = timed
+    loop = asyncio.get_running_loop()
+
+    async def until(cond, what: str) -> None:
+        end = loop.time() + LIVE_WAIT_S
+        while not cond():
+            if loop.time() > end:
+                raise AssertionError(f"live client: timed out waiting for {what}")
+            await asyncio.sleep(0.01)
+
+    task = asyncio.create_task(client.run())
+    listener = None
+    try:
+        t = await connect_tcp("127.0.0.1", port)
+        listener = LiveClient(t, want)
+        await t.send(pkt.PacketType.CLIENT_CAPABILITIES, wire.pack())
+        await until(lambda: want in shown, "a frame equal to the oracle")
+        await until(lambda: any(p > 0.05 for p in listener.audio_peaks), "the tone")
+        # every launch precedes its frame's send: once the last frame is sent
+        # (or has failed), the count is final
+        await until(lambda: task.done() or client.audio_frames_sent + client.audio_failures
+                    >= CLIENT_AUDIO_FRAMES, "the tone's end")
+        if task.done():
+            task.result()
+        client._on_key("q")
+        await asyncio.wait_for(task, LIVE_WAIT_S)
+    finally:
+        if not task.done():
+            task.cancel()
+        if listener is not None:
+            listener.task.cancel()
+            await listener.t.close()
+    return {"frames_received": client.frames_received, "frames_sent": client.frames_sent,
+            "audio_frames_sent": client.audio_frames_sent,
+            "audio_failures": client.audio_failures, "heard_peak": max(listener.audio_peaks),
+            "matched": shown.count(want), "process_ms": sorted(process_ms)}
+
+
+def cli_client(port: int, picture: np.ndarray) -> tuple[int, bytes, str]:
+    """``apps.main client`` on the card (ASCIICHAT_TORCH_DEVICE unset) with
+    ``picture`` fed on stdin until it exits; (exit code, stdout, stderr)."""
+    out_path, err_path = ROOT / "build" / "chip_smoke_cli.out", ROOT / "build" / "chip_smoke_cli.err"
+    cmd = [sys.executable, "-m", "asciichat_tpu_torch.apps.main", "client", "127.0.0.1",
+           "--port", str(port), "--stdin-size", f"{UPLINK_W}x{UPLINK_H}", "--no-compress",
+           "--no-reconnect", "--max-frames", str(CLI_FRAMES), "--tone-hz", "440",
+           "--width", str(TERM_W), "--height", str(TERM_H), "--render-mode", "2",
+           "--color-mode", "truecolor", "--log-level", "WARNING"]
+    env = dict(os.environ, LANG="C.UTF-8")
+    env.pop("ASCIICHAT_TORCH_DEVICE", None)
+    with open(out_path, "wb") as out, open(err_path, "wb") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdin=subprocess.PIPE, stdout=out,
+                                stderr=err)
+
+        def feed():
+            data = picture.tobytes()
+            try:
+                while proc.poll() is None:
+                    proc.stdin.write(data)
+                    proc.stdin.flush()
+            except (BrokenPipeError, OSError, ValueError):
+                pass
+
+        feeder = threading.Thread(target=feed, daemon=True)
+        feeder.start()
+        try:
+            rc = proc.wait(timeout=2 * LIVE_WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+            raise
+        finally:
+            feeder.join(timeout=30)
+            try:
+                proc.stdin.close()
+            except (BrokenPipeError, OSError):
+                pass
+    return rc, out_path.read_bytes(), err_path.read_text(errors="replace")
+
+
+def phase13_live_client() -> dict[str, int]:
+    say("phase 13: live client, the port's AsciiChatClient on the card against "
+        "python -m asciichat_tpu_torch.apps.main server")
+    picture = np.random.default_rng(41).integers(0, 256, (UPLINK_H, UPLINK_W, 3), dtype=np.uint8)
+    comp = compositor.composite_reference(
+        picture[None], compositor.plan_composite([(UPLINK_W, UPLINK_H)], TERM_W, TERM_H))
+    want = oracle.ascii_convert_with_capabilities(comp, TERM_W, 2 * TERM_H, HB_TRUECOLOR)
+    # the command-line client's stdout is a file: it asks for frames without padding
+    piped = TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.HALF_BLOCK,
+                                 wants_padding=False, utf8_support=True)
+    want_cli = oracle.ascii_convert_with_capabilities(comp, TERM_W, 2 * TERM_H, piped)
+    with ServerProcess("chip_smoke_client_server.log") as srv:
+        reset_launches()
+        got = asyncio.run(live_client_session(srv.port, picture, want))
+        launches = read_launches()
+        srv.check()
+        rc, out, err = cli_client(srv.port, picture)
+        srv.check()
+    k5 = launches[audio.CAPTURE_KERNEL.name]
+    if got["audio_failures"] or k5 != got["audio_frames_sent"] or k5 != CLIENT_AUDIO_FRAMES:
+        raise AssertionError(f"live client: {k5} K5 launches, {got['audio_frames_sent']} audio "
+                             f"frames sent, {got['audio_failures']} failed, expected "
+                             f"{CLIENT_AUDIO_FRAMES} of each and none failed")
+    pm = got.pop("process_ms")
+    say(f"  ok  {got['matched']} of {got['frames_received']} frames byte-identical to the oracle "
+        f"({len(want)} bytes); the listener heard the tone (peak {got['heard_peak']:.3f}); "
+        f"K5 launches {k5} = audio frames sent, 0 failed")
+    say(f"  time ClientAudioPipeline.process ({len(pm)} frames, host clock): p50 "
+        f"{pm[len(pm) // 2]:.4f} ms, p99 {pm[int(len(pm) * 0.99)]:.4f} ms, worst {pm[-1]:.4f} ms "
+        f"[{CARD}]")
+    if rc != 0:
+        raise AssertionError(f"CLI client exited {rc}:\n{err[-3000:]}")
+    if not out.endswith(want_cli + b"\n"):
+        raise AssertionError(f"CLI client: its last frame differs from the oracle "
+                             f"({len(out)} bytes out):\n{err[-3000:]}")
+    say(f"  ok  CLI client (800x600 on stdin, --tone-hz 440): exit 0 after {CLI_FRAMES} frames, "
+        "the last byte-identical to the oracle")
+    return launches
 
 
 def main() -> int:
@@ -1043,9 +1385,12 @@ def main() -> int:
     times["mixer"] = phase9_mixer(dev, mixer_err)
     paths["server_tick"] = phase10_server_tick(dev, mixer_err)
     paths["live_server"] = phase11_live_server()
+    capture_err = AudioErr()
+    times["capture_chain"] = phase12_capture(dev, capture_err)
+    paths["live_client"] = phase13_live_client()
     need += [("server_tick", "render_group"), ("server_tick", "mixer")]
     need += [(path, name) for name, path in MAIN_PATH.items()]
-    say(f"phase 12: launches by path: {paths}")
+    say(f"phase 14: launches by path: {paths}")
     missing = [f"{name} on {path}" for path, name in need if not paths[path].get(name)]
     if missing:
         raise AssertionError(f"kernels not launched: {missing}")
@@ -1055,8 +1400,9 @@ def main() -> int:
                  "replaces": k.replaces, "launches": paths[MAIN_PATH[k.name]][k.name],
                  "launches_by_path": {p: n[k.name] for p, n in paths.items()
                                       if k.name in n}}
-        if k is audio.MIXER_KERNEL:
-            entry.update(max_abs_err=mixer_err.abs, max_rel_err=mixer_err.rel)
+        if k in (audio.MIXER_KERNEL, audio.CAPTURE_KERNEL):
+            err = mixer_err if k is audio.MIXER_KERNEL else capture_err
+            entry.update(max_abs_err=err.abs, max_rel_err=err.rel)
         else:
             entry["max_abs_err"] = max(errs[k.name])
         t = times[k.name]

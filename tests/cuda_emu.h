@@ -2,7 +2,9 @@
 // running a kernel's source under g++ in the CPU tests: the block's threads
 // are std::threads, __shared__ variables are function statics (one copy,
 // seen by every thread), __syncthreads is a barrier over the block (and
-// __syncthreads_or a vote across it), and the warp collectives exchange through per-warp arrays between two barriers.
+// __syncthreads_or a vote across it), __syncwarp a barrier over the warp,
+// and the warp collectives exchange through per-warp arrays between two
+// barriers.
 // A grid runs its blocks one at a time, in a scrambled order (CUDA promises
 // none), on one set of threads that a barrier holds between blocks.
 // Dynamic shared memory is one buffer per launch (emu_dynamic_smem: the
@@ -114,6 +116,10 @@ inline int __syncthreads_or(int pred) {
   if (threadIdx.x == 0) emu_vote.store(0);
   emu_block->arrive_and_wait();
   return any;
+}
+
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp[threadIdx.x / 32]->arrive_and_wait();
 }
 
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {

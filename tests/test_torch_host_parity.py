@@ -2,8 +2,12 @@
 originals produce, byte for byte, on the same inputs: the emitter (both
 bind ``native/emitter.cpp``, built into their own directories), the oracle
 (the reference's scalar renderer, the port's byte judge), ACIP framing and
-CRC32-C, the command line's parser (namespaces and help), and the resize
-index tables."""
+CRC32-C, the command line's parser (namespaces and help), the resize index
+tables, and the client's audio sources and sinks (tone, WAV files in PCM16
+and float, file sink)."""
+
+import struct
+import wave
 
 import numpy as np
 import pytest
@@ -17,6 +21,7 @@ from asciichat_tpu.render import emitter as jemitter
 from asciichat_tpu.render import oracle as joracle
 from asciichat_tpu.render import palette as jpal
 from asciichat_tpu.render import types as jtypes
+from asciichat_tpu.runtime import audiodev as jaudiodev
 from asciichat_tpu.utils import aspect as jaspect
 from asciichat_tpu_torch.apps import main as tmain
 from asciichat_tpu_torch.net import packet as tpkt
@@ -25,6 +30,7 @@ from asciichat_tpu_torch.render import emitter as temitter
 from asciichat_tpu_torch.render import oracle as toracle
 from asciichat_tpu_torch.render import palette as tpal
 from asciichat_tpu_torch.render import types as ttypes
+from asciichat_tpu_torch.runtime import audiodev as taudiodev
 from asciichat_tpu_torch.utils import aspect as taspect
 
 from conftest import synthetic_frame
@@ -258,3 +264,57 @@ def test_resize_indices_match(src):
         assert got.dtype == want.dtype and np.array_equal(got, want), (src, dst)
         assert (taspect.fit_dimensions_pixel(src, dst, 203, 128)
                 == jaspect.fit_dimensions_pixel(src, dst, 203, 128))
+
+
+# -- audio sources and sinks -----------------------------------------------------
+
+
+def _wav_pcm16(path, rate: int, channels: int) -> None:
+    sig = (np.sin(2 * np.pi * 440 * np.arange(2400) / rate) * 16000).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(np.repeat(sig, channels).tobytes())
+
+
+def _wav_float(path) -> None:
+    data = (0.25 * np.sin(2 * np.pi * 300 * np.arange(4000) / 32000)).astype("<f4").tobytes()
+    fmt = struct.pack("<HHIIHH", 3, 1, 32000, 32000 * 4, 4, 32)
+    path.write_bytes(b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt) + 8 + len(data)) + b"WAVE"
+                     + b"fmt " + struct.pack("<I", len(fmt)) + fmt
+                     + b"data" + struct.pack("<I", len(data)) + data)
+
+
+@pytest.mark.parametrize("kind", ["tone", "silence", "wav16_24k_stereo", "wav16_48k_mono",
+                                  "wav_float_32k"])
+def test_audio_sources_match(kind, tmp_path):
+    path = tmp_path / "in.wav"
+    if kind.startswith("wav16"):
+        _wav_pcm16(path, 24000 if "24k" in kind else 48000, 2 if "stereo" in kind else 1)
+    elif kind == "wav_float_32k":
+        _wav_float(path)
+    sources = []
+    for mod in (jaudiodev, taudiodev):
+        if kind == "tone":
+            sources.append(mod.open_audio_source(tone_hz=1000.0, amplitude=0.5))
+        elif kind == "silence":
+            sources.append(mod.SilenceSource())
+        else:
+            sources.append(mod.open_audio_source(wav=str(path)))
+    for n in (480, 480, 7, 9600):  # 9600 wraps the looping files
+        a, b = (src.read(n) for src in sources)
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+
+
+def test_file_sink_matches(tmp_path):
+    buf = (0.3 * np.sin(np.arange(960) / 5)).astype(np.float32)
+    for mod, name in ((jaudiodev, "j.f32"), (taudiodev, "t.f32")):
+        sink = mod.open_audio_sink(str(tmp_path / name))
+        sink.write(buf[:480])
+        sink.write(buf[480:])
+        sink.close()
+    assert (tmp_path / "j.f32").read_bytes() == (tmp_path / "t.f32").read_bytes()
+    with pytest.raises(taudiodev.AudioSourceUnavailable):
+        taudiodev.open_audio_source(wav=str(tmp_path / "missing.wav"))

@@ -6,7 +6,10 @@ where ``torch.cuda.is_available()`` is false; on the card they run with
 ``chip_smoke.py`` runs the same comparisons at the main path's full sizes.
 The wrappers' checks and the CPU dispatch run everywhere. Tolerance: exact
 for K1-K3 (uint8 records); K4's float32 mixes are held to rtol=2e-4,
-atol=2e-5, the bound tests/test_audio.py holds the JAX mixer to.
+atol=2e-5, the bound tests/test_audio.py holds the JAX mixer to, and so are
+K5's output and weights (its NLMS dot products sum in another order; the far
+tail, hangover and frozen fraction exactly, and without the AEC the whole
+chain bit for bit).
 """
 
 import numpy as np
@@ -19,6 +22,8 @@ from asciichat_tpu_torch.models import server
 from asciichat_tpu_torch.ops import audio, cells, pixel, resize
 from asciichat_tpu_torch.runtime import kernel_build
 from asciichat_tpu_torch.runtime.device import check_tensor, default_device, require_cuda
+
+from test_torch_capture_emulated import scenario
 
 
 @pytest.fixture(autouse=True)
@@ -268,6 +273,92 @@ def test_mixer_kernel_rejects_what_it_does_not_take(cuda):
                             exclude_self=False)
 
 
+def _chain_state(taps: int, device) -> tuple:
+    z = torch.zeros((), device=device)
+    return (torch.zeros(taps, device=device), torch.zeros(taps, device=device),
+            torch.zeros((), dtype=torch.int32, device=device), z, z, z,
+            torch.zeros((), dtype=torch.bool, device=device))
+
+
+def _chain_frames(state, mic, far, use_aec: bool, taps: int):
+    """capture_chain over the frames with the state carried and divergence
+    control between frames -> [(out, stats, state)] per frame."""
+    args = dict(use_aec=use_aec, taps=taps, mu=0.5, geigel_t=0.5, hangover=1440,
+                gate_threshold=0.01)
+    frames = []
+    for m, f in zip(mic, far):
+        out, *state, stats = audio.capture_chain(m, f, *state, audio.highpass_alpha(100.0),
+                                                 **args)
+        if float(stats[1]) > 2.0 * float(stats[2]) + 1e-9:
+            state[0] = state[0] * 0.5
+        frames.append((out, stats, tuple(state)))
+    return frames
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps,n", [(256, 480), (256, 100), (64, 1), (100, 960), (1024, 480)])
+def test_capture_kernel_matches_plain(cuda, taps, n):
+    """K5 against the plain chain over 12 frames of echo, a flipped echo
+    path, double talk and silence, one launch a frame."""
+    mic, far = (torch.from_numpy(a) for a in scenario(taps + n, 12, n))
+    before = audio.CAPTURE_KERNEL.launches
+    got = _chain_frames(_chain_state(taps, cuda), mic.to(cuda), far.to(cuda), True, taps)
+    assert audio.CAPTURE_KERNEL.launches == before + 12
+    want = _chain_frames(_chain_state(taps, "cpu"), mic, far, True, taps)
+    for k, ((go, gs, gst), (wo, ws, wst)) in enumerate(zip(got, want)):
+        torch.testing.assert_close(go.cpu(), wo, rtol=2e-4, atol=2e-5, msg=f"frame {k}")
+        torch.testing.assert_close(gst[0].cpu(), wst[0], rtol=2e-4, atol=2e-5)
+        assert torch.equal(gst[1].cpu(), wst[1]) and int(gst[2]) == int(wst[2]), k
+        assert bool(gst[6]) == bool(wst[6]) and float(gs[0]) == float(ws[0]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 100, 480, 960])
+def test_capture_kernel_without_aec_bit_exact(cuda, n):
+    mic, far = (torch.from_numpy(a) for a in scenario(n, 10, n))
+    got = _chain_frames(_chain_state(0, cuda), mic.to(cuda), far.to(cuda), False, 1)
+    want = _chain_frames(_chain_state(0, "cpu"), mic, far, False, 1)
+    for k, ((go, _, gst), (wo, _, wst)) in enumerate(zip(got, want)):
+        assert torch.equal(go.cpu(), wo), f"frame {k}"
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(gst[3:], wst[3:])), k
+
+
+@pytest.mark.gpu
+def test_capture_pipeline_on_the_card(cuda):
+    """ClientAudioPipeline on the card (one launch a frame, the state in
+    place) against the same pipeline on the CPU."""
+    mic, far = scenario(3, 16, 480)
+    card = audio.ClientAudioPipeline(device=cuda)
+    host = audio.ClientAudioPipeline(device="cpu")
+    before = audio.CAPTURE_KERNEL.launches
+    for k in range(len(mic)):
+        for p in (card, host):
+            p.add_far(far[k][:240] if k == 2 else far[k])
+        got, want = card.process(mic[k]), host.process(mic[k])
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5, err_msg=f"frame {k}")
+        assert int(card.aec.hang) == int(host.aec.hang)
+        assert card.aec.double_talk_frac == host.aec.double_talk_frac
+        assert card.aec.divergence_resets == host.aec.divergence_resets
+    assert audio.CAPTURE_KERNEL.launches == before + len(mic)
+    assert card.aec.divergence_resets >= 1
+
+
+@pytest.mark.gpu
+def test_capture_kernel_rejects_what_it_does_not_take(cuda):
+    state = _chain_state(256, cuda)
+    consts = audio.capture_consts(480)
+    x = torch.zeros(audio.MAX_CAPTURE_SAMPLES + 1, device=cuda)
+    with pytest.raises(ValueError, match=f"1 to {audio.MAX_CAPTURE_SAMPLES}"):
+        audio.capture_launch(audio.STAGE_GATE, x, None, state, consts)
+    with pytest.raises(ValueError, match="taps"):
+        audio.capture_launch(audio.STAGE_AEC, x[:480], x[:480], state, consts, taps=2048)
+    with pytest.raises(ValueError, match="weights"):
+        audio.capture_launch(audio.STAGE_AEC, x[:480], x[:480], state, consts, taps=128)
+    with pytest.raises(ValueError, match="gate_open"):
+        audio.capture_launch(audio.STAGE_GATE, x[:480], None,
+                             state[:6] + (state[6].to(torch.uint8),), consts)
+
+
 def test_check_tensor_rejects_what_kernels_do_not_take():
     cpu = torch.device("cpu")
     ok = torch.zeros((2, 4, 5, 3), dtype=torch.uint8)
@@ -305,9 +396,10 @@ def test_kernel_entry_points_are_declared():
     with pytest.raises(ValueError, match="unknown entry point"):
         kernel_build.Kernel("x", "ac_missing", "csrc/x.cu", "x.py:1")
     sources = {p.name for p in kernel_build.CSRC_DIR.glob("*.cu")}
-    assert sources == {"resize.cu", "cell_records.cu", "render_group.cu", "mixer.cu"}
+    assert sources == {"resize.cu", "cell_records.cu", "render_group.cu", "mixer.cu",
+                       "capture.cu"}
     for k in (resize.RESIZE_KERNEL, cells.CELL_RECORDS_KERNEL, server.RENDER_GROUP_KERNEL,
-              audio.MIXER_KERNEL):
+              audio.MIXER_KERNEL, audio.CAPTURE_KERNEL):
         assert (kernel_build.CSRC_DIR.parent.parent / k.source).is_file()
         text = (kernel_build.CSRC_DIR.parent.parent / k.source).read_text()
         assert f'extern "C" int {k.entry}(' in text

@@ -1,8 +1,9 @@
 """The port never imports JAX: every module of asciichat_tpu_torch and
 chip_smoke.py's imports load with ``jax`` unimportable (nor do they import
 the JAX package ``asciichat_tpu``: tests/test_torch_standalone.py), the
-plaintext server needs neither JAX nor ``cryptography``, and chip_smoke.py
-fails without a card or outside a checkout, printing no result."""
+plaintext server and client need neither JAX nor ``cryptography``, and
+chip_smoke.py fails without a card or outside a checkout, printing no
+result."""
 
 import json
 import os
@@ -59,6 +60,27 @@ def test_server_imports_neither_jax_nor_cryptography():
     """A plaintext server needs neither: the crypto modules load only for an
     encrypted session or an auth option."""
     out = _run(["-c", SERVER_IMPORTS], REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
+CLIENT_IMPORTS = """
+import sys
+import asciichat_tpu_torch.apps.client
+import asciichat_tpu_torch.runtime.audiodev
+from asciichat_tpu_torch.apps.main import build_parser
+build_parser().parse_args(["client", "127.0.0.1", "--tone-hz", "440"])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "cryptography"))
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_client_imports_neither_jax_nor_cryptography():
+    """A plaintext client (with its audio sources and capture chain) needs
+    neither: the handshake loads only for an encrypted session."""
+    out = _run(["-c", CLIENT_IMPORTS], REPO)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split()[-1] == "ok"
 

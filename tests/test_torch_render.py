@@ -163,7 +163,8 @@ def test_mirror_matrix_not_ported():
 
 
 @pytest.mark.parametrize("argv", [
-    ["discovery"], ["client", "127.0.0.1"], ["discovery-service"], ["bench"],
+    ["discovery"], ["client", "127.0.0.1", "--ws"], ["client", "127.0.0.1", "--webrtc"],
+    ["client", "--browse"], ["discovery-service"], ["bench"],
     ["mirror", "--test-pattern", "--matrix", "--snapshot"],
     ["mirror", "--test-pattern", "--render-file", "out.y4m"],
     ["server", "--port", "0", "--ws-port", "0"], ["server", "--port", "0", "--mdns"],

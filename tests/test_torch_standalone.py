@@ -3,8 +3,10 @@ chip_smoke.py, imports the JAX package ``asciichat_tpu`` (eagerly or
 lazily), every one of them imports with ``asciichat_tpu``, ``jax`` and
 ``jaxlib`` unimportable, and the port's server, started in a process where
 ``asciichat_tpu`` cannot be imported, serves a plaintext and an encrypted
-client frames equal to the oracle. The clients and the oracle here are the
-JAX package's: the tests are not the port."""
+client frames equal to the oracle, and so it does to the port's
+command-line client (with its audio capture chain), itself run with
+``asciichat_tpu`` blocked. The raw clients and the oracle here are the JAX
+package's: the tests are not the port."""
 
 import ast
 import asyncio
@@ -178,3 +180,48 @@ def test_server_serves_without_the_jax_package(encrypted):
         err = proc.stderr.read().decode(errors="replace")
         proc.stderr.close()
     assert "refused" not in err and "Traceback" not in err, err[-3000:]
+
+
+@pytest.mark.parametrize("encrypted", [False, True], ids=["plaintext", "encrypted"])
+def test_client_without_the_jax_package(encrypted, tmp_path):
+    """``apps.main client`` (runtime/audiodev's tone through the capture
+    chain, on the plain version) against the port's server, both with
+    ``asciichat_tpu`` blocked: exits 0 after --max-frames, its last frame
+    byte-identical to the oracle."""
+    if encrypted:
+        pytest.importorskip("cryptography")
+    frame = synthetic_frame(48, 64, seed=24)
+    caps = TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.HALF_BLOCK,
+                                wants_padding=False, utf8_support=True)  # piped stdout
+    plan = compositor.plan_composite([(64, 48)], TERM_W, TERM_H)
+    want = oracle.ascii_convert_with_capabilities(
+        compositor.composite_reference(frame[None], plan), TERM_W, 2 * TERM_H, caps)
+    feed = tmp_path / "frames.rgb"
+    feed.write_bytes(frame.tobytes() * 600)
+    crypto = ("--password", PASSWORD) if encrypted else ()
+    port = _free_port()
+    proc = _start_server(port, *crypto)
+    argv = ["client", "127.0.0.1", "--port", str(port), "--stdin-size", "64x48",
+            "--no-compress", "--no-reconnect", "--max-frames", "20", "--tone-hz", "440",
+            "--width", str(TERM_W), "--height", str(TERM_H), "--render-mode", "2",
+            "--color-mode", "truecolor", "--log-level", "WARNING",
+            *(("--encrypt", *crypto) if encrypted else ())]
+    code = BLOCK + ("from asciichat_tpu_torch.apps.main import main\n"
+                    f"sys.exit(main({argv!r}))\n")
+    try:
+        with open(feed, "rb") as stdin:
+            out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                                 env=dict(_env(), LANG="C.UTF-8"), stdin=stdin,
+                                 capture_output=True, timeout=2 * WAIT_S)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stderr.close()
+    err = out.stderr.decode(errors="replace")
+    assert out.returncode == 0, err[-3000:]
+    assert out.stdout.endswith(want + b"\n"), err[-2000:]
+    assert "Traceback" not in err, err[-3000:]
