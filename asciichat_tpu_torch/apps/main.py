@@ -9,7 +9,7 @@ server and client.
 (``utils/options.py``) as ``asciichat_tpu/apps/main.py`` builds it, so flags,
 help and defaults are the reference CLI's. ``mirror``, ``server`` and
 ``client`` (over TCP) are ported; every other mode (discovery, ...), mirror's
-``--render-file`` and ``--matrix``, the server's ``--ws-port`` and
+``--render-file``, the server's ``--ws-port`` and
 ``--mdns``, the client's ``--ws``, ``--webrtc`` and ``--browse``, and
 ``--config`` exit non-zero with "not yet ported". The device is
 ``ASCIICHAT_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` for the plain PyTorch
@@ -36,6 +36,21 @@ def _not_ported(what: str) -> int:
     return NOT_PORTED
 
 
+def _update_banner() -> None:
+    """The opt-in update check (update_checker.c + update_banner.c): a newer
+    release prints the banner to stderr before the mode starts, so it never
+    mixes into a frame stream. Every failure is silent."""
+    from asciichat_tpu_torch.net.update_checker import UpdateChecker
+    from asciichat_tpu_torch.utils import ui
+
+    try:
+        banner = ui.update_banner(ui.__version__, UpdateChecker().check())
+    except Exception:
+        return
+    if banner:
+        print(banner.decode(), file=sys.stderr)
+
+
 def cmd_mirror(args) -> int:
     from asciichat_tpu_torch.models.mirror import MirrorSession
     from asciichat_tpu_torch.runtime.framesource import open_source
@@ -43,8 +58,6 @@ def cmd_mirror(args) -> int:
 
     if args.render_file:
         return _not_ported("mirror --render-file")
-    if args.matrix:
-        return _not_ported("mirror --matrix")
     caps = term.detect_capabilities(RenderMode(args.render_mode), args.color_mode)
     w, h = term.terminal_size(args.width, args.height)
     source = open_source(test_pattern=args.test_pattern, file=args.file,
@@ -53,7 +66,7 @@ def cmd_mirror(args) -> int:
         source, caps, w, h, BUILTIN_PALETTES.get(args.palette, args.palette),
         fps_limit=args.fps, color_filter=args.color_filter,
         flip_x=args.flip_x, flip_y=args.flip_y, stretch=args.stretch,
-        show_fps=args.show_fps,
+        show_fps=args.show_fps, matrix=args.matrix,
     )
     if args.snapshot:
         session.run_snapshot()
@@ -162,6 +175,8 @@ def main(argv=None) -> int:
         grep=getattr(args, "grep", None),
         json_output=getattr(args, "log_json", False),
     )
+    if getattr(args, "update_check", False):
+        _update_banner()
     try:
         return fn(args)
     except AsciiChatError as e:

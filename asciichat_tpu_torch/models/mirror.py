@@ -16,8 +16,7 @@ import time
 
 import torch
 
-from asciichat_tpu_torch.models.session import (  # noqa: F401 (re-exported)
-    MATRIX_NOT_PORTED, DisplaySink, FrameTransform, Pacer)
+from asciichat_tpu_torch.models.session import DisplaySink, FrameTransform, Pacer
 from asciichat_tpu_torch.render.pipeline import AsciiRenderer
 from asciichat_tpu_torch.render.types import TerminalCapabilities
 from asciichat_tpu_torch.runtime.double_buffer import FrameQueue
@@ -48,9 +47,10 @@ class MirrorSession:
         self.caps = caps
         self.width = width
         self.height = height
-        self.transform = FrameTransform(flip_x=flip_x, flip_y=flip_y, matrix=matrix,
-                                        color_filter=color_filter)
         self.renderer = AsciiRenderer(palette, device)
+        self.transform = FrameTransform(flip_x=flip_x, flip_y=flip_y, matrix=matrix,
+                                        color_filter=color_filter,
+                                        device=self.renderer.device)
         self.stretch = stretch
         self.display = DisplaySink(show_fps=show_fps)
         self.display.set_meta(caps.renderer_key(), (width, height))
@@ -59,17 +59,48 @@ class MirrorSession:
         self._stop = threading.Event()
         self._filter_cycle = ["none", "green", "cyan", "orange", "rainbow"]
 
+    # the transform's live fields (keybindings and tests mutate these)
+    @property
+    def flip_x(self):
+        return self.transform.flip_x
+
+    @flip_x.setter
+    def flip_x(self, v):
+        self.transform.flip_x = v
+
+    @property
+    def matrix(self):
+        return self.transform.matrix
+
+    @matrix.setter
+    def matrix(self, v):
+        self.transform.matrix = v
+
+    @property
+    def color_filter(self):
+        return self.transform.color_filter
+
+    @color_filter.setter
+    def color_filter(self, v):
+        self.transform.color_filter = v
+
+    @property
+    def writer(self):
+        return self.display.writer
+
     def _on_key(self, key: str) -> None:
-        """Live keybindings; 'm' (digital rain) waits for the rain port."""
+        """Live keybindings (session keyboard_handler.c analog)."""
         if key in ("q", "\x03"):
             self._stop.set()
         elif key == "f":
-            self.transform.flip_x = not self.transform.flip_x
+            self.flip_x = not self.flip_x
+        elif key == "m":
+            self.matrix = not self.matrix
         elif key == "c":
             cyc = self._filter_cycle
-            cur = self.transform.color_filter
+            cur = self.color_filter
             i = cyc.index(cur) + 1 if cur in cyc else 0
-            self.transform.color_filter = cyc[i % len(cyc)]
+            self.color_filter = cyc[i % len(cyc)]
         elif key == "?":
             self.display.show_help = not self.display.show_help
 

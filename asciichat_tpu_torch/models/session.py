@@ -4,10 +4,10 @@ and the client.
 Copied from ``asciichat_tpu/models/session.py`` (src/common/session/ in the
 reference: client_like.c, pipeline.c, display.c):
 
-- FrameTransform: the capture-side frame chain (flip, color filter, upload
-  fit) with its live-mutable fields, used by the mirror's convert stage and
-  the client's capture task (pipeline.c stage 1->2). The digital-rain
-  overlay (``matrix``) is not ported yet.
+- FrameTransform: the capture-side frame chain (flip, digital rain overlay,
+  color filter, upload fit) with its live-mutable fields, used by the
+  mirror's convert stage and the client's capture task (pipeline.c stage
+  1->2).
 - DisplaySink: terminal frame writing with first-frame reset, chat lines,
   help/fps overlays (display.c + client display semantics).
 - ReconnectPolicy: the reference's backoff-with-reset connect retry
@@ -20,37 +20,60 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
 from asciichat_tpu_torch.ops import filters
+from asciichat_tpu_torch.ops.rain import DigitalRain
+from asciichat_tpu_torch.runtime.device import default_device
 from asciichat_tpu_torch.utils import term, ui
 from asciichat_tpu_torch.utils.fps import FpsCounter
-
-MATRIX_NOT_PORTED = ("--matrix needs the digital-rain overlay (ops/rain.py), which "
-                     "is not ported yet: ROADMAP.md Queue 1, item 9")
 
 
 class FrameTransform:
     """Capture-side frame chain (pipeline.c capture->convert hand-off):
-    flips -> color filter -> optional upload fit (the oracle's resize, so
-    an uploaded picture is the one the reference client sends). All fields
-    are live-mutable (keybindings toggle them mid-session)."""
+    flips -> digital-rain overlay -> color filter -> optional upload fit (the
+    oracle's resize, so an uploaded picture is the one the reference client
+    sends). All fields are live-mutable (keybindings toggle them
+    mid-session). The rain runs on ``device`` (``default_device()`` when
+    None, resolved at the first frame that asks for rain) and its frame
+    stays there unless a later step works on the host."""
 
     def __init__(self, flip_x: bool = False, flip_y: bool = False,
                  matrix: bool = False, color_filter: str = "none",
-                 max_upload: tuple[int, int] | None = None):
-        if matrix:
-            raise NotImplementedError(MATRIX_NOT_PORTED)
+                 max_upload: tuple[int, int] | None = None,
+                 device: torch.device | str | None = None):
         self.flip_x = flip_x
         self.flip_y = flip_y
+        self.matrix = matrix
         self.color_filter = color_filter
         self.max_upload = max_upload
+        self.device = None if device is None else torch.device(device)
+        self._rain: DigitalRain | None = None
+        self._t0 = time.monotonic()
 
-    def __call__(self, frame: np.ndarray) -> np.ndarray:
+    def _overlay(self, frame: np.ndarray) -> torch.Tensor:
+        h, w = frame.shape[:2]
+        rain = self._rain
+        if rain is None or rain.num_columns != w or rain.num_rows != h:
+            # both dimensions: a height-only change (a file source switching
+            # clips) with a stale num_rows would not match the frame
+            if self.device is None:
+                self.device = default_device()
+            rain = self._rain = DigitalRain(w, h, device=self.device)
+        on_device = torch.from_numpy(np.ascontiguousarray(frame)).to(rain.device)
+        return rain.apply(on_device, time.monotonic() - self._t0)
+
+    def __call__(self, frame: np.ndarray) -> np.ndarray | torch.Tensor:
         frame = np.asarray(frame)
         if self.flip_x:
             frame = frame[:, ::-1]
         if self.flip_y:
             frame = frame[::-1]
+        if self.matrix:
+            frame = self._overlay(frame)
+            if self.color_filter == "none" and self.max_upload is None:
+                return frame
+            frame = frame.cpu().numpy()
         if self.color_filter != "none":
             frame = filters.apply_color_filter_reference(
                 frame, self.color_filter, time.monotonic())

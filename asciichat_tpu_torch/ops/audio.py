@@ -319,8 +319,8 @@ CAPTURE_KERNEL = Kernel(
 
 # K5's stages, a bit each (csrc/capture.cu kStage*)
 STAGE_AEC, STAGE_HIGHPASS, STAGE_GATE = 1, 2, 4
-MAX_TAPS = 1024  # K5 holds 32 weights a lane
-MAX_CAPTURE_SAMPLES = 3072  # K5 keeps a frame's history in 48 KB of shared memory
+MAX_TAPS = 1024  # K5's mat-vec holds 32 weights a lane
+MAX_CAPTURE_SAMPLES = 3072  # K5 keeps a frame and its per-sample terms in shared memory
 
 # CaptureConsts of csrc/capture.cu, in its field order.
 CAPTURE_CONSTS = ("mu", "geigel_t", "norm_eps", "hp_alpha", "gate_threshold",

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (nvcc + ctypes, no PyTorch headers).
 
-``csrc/*.cu`` compile with one ``nvcc`` call into a shared library with a
-plain C interface, at first use, into ``build/torch_kernels/`` under the
+``csrc/*.cu`` compile with one ``nvcc`` each, all started together, and one
+link into a shared library with a plain C interface, at first use, into
+``build/torch_kernels/`` under the
 repository root. The file name carries a hash of the sources and flags, so an
 edit rebuilds and a stale library is never loaded. Pointers and the CUDA
 stream pass as ``c_void_p``; every C entry returns ``cudaGetLastError()`` and
@@ -40,8 +41,8 @@ BUILD_DIR = REPO_DIR / "build" / "torch_kernels"
 NATIVE_DIR = REPO_DIR / "native"
 NATIVE_BUILD_DIR = REPO_DIR / "build" / "torch_native"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*NVCC_ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 NATIVE_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 # libraries a native source links against; they follow the source
@@ -106,16 +107,33 @@ def nvcc_path() -> str:
 
 
 def build_cuda(verbose: bool = False) -> tuple[Path, str]:
-    """Build libkernels if no library for the current sources exists.
-    Returns (path, compiler output); ``verbose`` adds ``-Xptxas -v`` (each
-    kernel's registers, shared memory and spills) to a fresh build."""
+    """Build libkernels if no library for the current sources exists: one
+    nvcc per source, all at once (the build takes as long as its slowest
+    source, not the sum of all), then one link. Returns (path, compiler
+    output); ``verbose`` adds ``-Xptxas -v`` (each kernel's registers, shared
+    memory and spills) to a fresh build."""
     units = _sources("*.cu")
-    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
     digest = _digest(units + _sources("*.cuh"), NVCC_FLAGS)
     out = BUILD_DIR / f"libkernels-{digest}.so"
     if out.exists():
         return out, ""
-    log = _compile([nvcc_path(), *flags, f"-I{CSRC_DIR}"], units, out)
+    nvcc = nvcc_path()
+    flags = [f for f in NVCC_FLAGS if f != "-shared"] + (["-Xptxas", "-v"] if verbose else [])
+    objs = BUILD_DIR / f"objects-{digest}-{os.getpid()}"
+    objs.mkdir(parents=True, exist_ok=True)
+    try:
+        jobs = [(unit, subprocess.Popen(
+            [nvcc, *flags, "-c", f"-I{CSRC_DIR}", "-o", str(objs / f"{unit.stem}.o"), str(unit)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for unit in units]
+        texts = [job.communicate()[0] for _, job in jobs]  # every job ends first
+        for (unit, job), text in zip(jobs, texts):
+            if job.returncode != 0:
+                raise RuntimeError(f"kernel build failed ({unit.name}):\n{text[-6000:]}")
+        log = "".join(texts)
+        link = [nvcc, *NVCC_ARCH, "-shared"]
+        log += _compile(link, sorted(objs.glob("*.o")), out)
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
     return out, log
 
 

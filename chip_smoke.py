@@ -25,6 +25,14 @@ so the exit code is non-zero:
    calls, device only, eager and with the fetch;
 6. mirror: ``AsciiRenderer.convert_batch`` on 128 frames of 1080p, byte-exact
    against the oracle, and the mirror CLI's ``--snapshot`` in a subprocess;
+6b. mirror ``--matrix``: the digital rain (``ops/rain.py``, torch code on the
+   card, no kernel of its own) at 1080p against the plain CPU version, 24
+   fields over 0-120 s: outside wrap pixels (where the CPU version's wobble
+   lies within 1e-4 of an integer, at most 0.05% of the pixels) the field
+   within 1e-4 and the overlaid frame within 1; the bytes rendered from the
+   card's overlaid frame equal the oracle's; ``MirrorSession(matrix=True)``
+   and the CLI's ``--matrix --snapshot`` on the card; the overlay timed per
+   1080p frame;
 7. server: ``RenderGroup.step`` and ``fetch`` for 100 ticks, every
    receiver's bytes against the oracle;
 8. the launch counts of phase 6 (K1, K2) and phase 7 (K3), each path's
@@ -109,11 +117,12 @@ import torch
 
 from asciichat_tpu_torch.apps.client import AsciiChatClient
 from asciichat_tpu_torch.models import server
+from asciichat_tpu_torch.models.mirror import MirrorSession
 from asciichat_tpu_torch.models.session import DisplaySink
 from asciichat_tpu_torch.net import packet as pkt
 from asciichat_tpu_torch.net import protocol as proto
 from asciichat_tpu_torch.net.transport import connect_tcp
-from asciichat_tpu_torch.ops import audio, cells, compositor, filters, pixel, resize
+from asciichat_tpu_torch.ops import audio, cells, compositor, filters, pixel, rain, resize
 from asciichat_tpu_torch.render import emitter, oracle, palette
 from asciichat_tpu_torch.render.pipeline import AsciiRenderer, plan_render
 from asciichat_tpu_torch.render.types import ColorLevel, RenderMode, TerminalCapabilities
@@ -157,6 +166,11 @@ LIVE_AUDIO_HZ = 100  # each client's AUDIO_BATCHes (480 samples) per second
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SECTOR = 32  # bytes: the unit in which the card reads device memory
+
+RAIN_TIMES = 24  # phase 6b's rain fields, over 0-120 s
+RAIN_FIELD_TOL = 1e-4  # absolute, outside wrap pixels (tests/test_torch_rain.py)
+RAIN_WRAP_DIST = 1e-4  # |wob - round(wob)| below this makes a wrap pixel
+RAIN_WRAP_SHARE = 5e-4  # at most 0.05% of a window's pixels
 
 CAPTURE_FRAMES = 300  # phase 12's carried frames at full width
 CAPTURE_ARGS = dict(use_aec=True, taps=256, mu=0.5, geigel_t=0.5, hangover=1440,
@@ -620,6 +634,81 @@ def phase6_mirror(dev, frames: torch.Tensor) -> None:
             f"frames/s ({dev_ms:.4f} ms per batch), through D2H + emit "
             f"{BATCH / wall:.0f} frames/s [{CARD}]")
     mirror_cli_check(renderer)
+
+
+def rain_wrap(cpu_field: torch.Tensor) -> torch.Tensor:
+    """Wrap pixels of a plain field: its wobble within RAIN_WRAP_DIST of an
+    integer (the field is 1 - fract(wobble))."""
+    fract = 1.0 - cpu_field.double()
+    return torch.minimum(fract, 1.0 - fract) < RAIN_WRAP_DIST
+
+
+def phase6b_matrix(dev, frames: torch.Tensor) -> dict:
+    say(f"phase 6b: mirror --matrix, the rain at {SRC_W}x{SRC_H} against the plain CPU version")
+    card = rain.DigitalRain(SRC_W, SRC_H, device=dev)
+    host = rain.DigitalRain(SRC_W, SRC_H)
+    wraps = 0
+    field_err = frame_err = 0.0
+    overlaid = []
+    for k, t in enumerate(np.linspace(0.0, 120.0, RAIN_TIMES)):
+        want = host.brightness_field(float(t))
+        got = card.brightness_field(float(t)).cpu()
+        wrap = rain_wrap(want)
+        wraps += int(wrap.sum())
+        field_err = max(field_err, float((got - want).abs()[~wrap].max()))
+        frame = frames[k % frames.shape[0]]
+        out = card.apply(frame, float(t))
+        ref = host.apply(frame.cpu(), float(t))
+        frame_err = max(frame_err, float(
+            (out.cpu().to(torch.int16) - ref.to(torch.int16)).abs()[~wrap].max()))
+        if k < 2:
+            overlaid.append(out)
+    share = wraps / (RAIN_TIMES * SRC_W * SRC_H)
+    if field_err > RAIN_FIELD_TOL or frame_err > 1 or share > RAIN_WRAP_SHARE:
+        raise AssertionError(f"rain on the card: field err {field_err}, frame err {frame_err}, "
+                             f"wrap share {share} (bound {RAIN_FIELD_TOL}, 1, {RAIN_WRAP_SHARE})")
+    say(f"  ok  {RAIN_TIMES} fields: max field err {field_err:.3g} and max frame err "
+        f"{frame_err:.0f} outside {wraps} wrap pixels ({share:.3%})")
+    renderer = AsciiRenderer(device=dev)
+    for out in overlaid:
+        got = renderer.convert(out, TERM_W, TERM_H, FG_TRUECOLOR)
+        want = oracle.ascii_convert_with_capabilities(out.cpu().numpy(), TERM_W, TERM_H,
+                                                      FG_TRUECOLOR)
+        if got != want:
+            raise AssertionError("the bytes of an overlaid frame differ from the oracle's")
+    session = MirrorSession(StillSource(frames[0].cpu().numpy()), FG_TRUECOLOR, TERM_W, TERM_H,
+                            palette.DEFAULT_PALETTE, matrix=True, device=dev)
+    session.display = DisplaySink(stream=io.BytesIO())
+    seen = []
+    convert = session.renderer.convert
+    session.renderer.convert = lambda f, *a, **kw: seen.append(f) or convert(f, *a, **kw)
+    snap = session.run_snapshot()
+    if (not isinstance(seen[0], torch.Tensor) or seen[0].device != dev
+            or snap != oracle.ascii_convert_with_capabilities(
+                seen[0].cpu().numpy(), TERM_W, TERM_H, FG_TRUECOLOR)):
+        raise AssertionError("MirrorSession(matrix=True): not the oracle's bytes of the "
+                             "frame overlaid on the card")
+    say("  ok  overlaid frames 0-1 and MirrorSession(matrix=True)'s snapshot (overlaid on "
+        "the card): byte-identical to the oracle")
+    env = dict(os.environ, COLORTERM="truecolor", LANG="C.UTF-8")
+    env.pop("ASCIICHAT_TORCH_DEVICE", None)
+    cmd = [sys.executable, "-m", "asciichat_tpu_torch.apps.main", "mirror", "--test-pattern",
+           "--matrix", "--snapshot", "--width", "80", "--height", "24", "--stretch"]
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, timeout=300)
+    lines = r.stdout.rstrip(b"\n").split(b"\n")
+    if r.returncode != 0 or len(lines) != 24:
+        raise RuntimeError(f"mirror --matrix CLI exited {r.returncode} with {len(lines)} lines:\n"
+                           f"{r.stderr.decode(errors='replace')[-3000:]}")
+    say("  ok  mirror CLI --test-pattern --matrix --snapshot 80x24 on the card: exit 0, 24 lines")
+    frame = frames[0]
+    ms = cuda_ms(lambda: card.apply(frame, 7.5), iters=50)
+    field_ms = cuda_ms(lambda: card.brightness_field(7.5), iters=50)
+    host_frame = frame.cpu()
+    plain = host_ms(lambda: host.apply(host_frame, 7.5), iters=3, warmup=1)
+    say(f"  time rain overlay per {SRC_W}x{SRC_H} frame on the card: {ms:.4f} ms (field alone "
+        f"{field_ms:.4f} ms); plain CPU {plain:.3f} ms [{CARD}]")
+    return {"overlay_ms": ms, "field_ms": field_ms, "plain_cpu_ms": plain,
+            "max_field_err": field_err, "max_frame_err": frame_err, "wrap_share": share}
 
 
 def phase7_server(dev) -> None:
@@ -1374,6 +1463,7 @@ def main() -> int:
     reset_launches()
     phase6_mirror(dev, frames)
     paths["mirror"] = read_launches()
+    matrix = phase6b_matrix(dev, frames)
     reset_launches()
     phase7_server(dev)
     paths["server_render"] = read_launches()
@@ -1394,7 +1484,7 @@ def main() -> int:
     missing = [f"{name} on {path}" for path, name in need if not paths[path].get(name)]
     if missing:
         raise AssertionError(f"kernels not launched: {missing}")
-    report = {"card": CARD, "kernels": []}
+    report = {"card": CARD, "kernels": [], "rain": matrix}
     for k in KERNELS:
         entry = {"name": k.name, "route": "cuda", "source": k.source,
                  "replaces": k.replaces, "launches": paths[MAIN_PATH[k.name]][k.name],

@@ -4,7 +4,8 @@
 // seen by every thread), __syncthreads is a barrier over the block (and
 // __syncthreads_or a vote across it), __syncwarp a barrier over the warp,
 // and the warp collectives exchange through per-warp arrays between two
-// barriers.
+// barriers (__shfl_xor_sync, __shfl_sync and __shfl_up_sync, of any value
+// of up to 8 bytes).
 // A grid runs its blocks one at a time, in a scrambled order (CUDA promises
 // none), on one set of threads that a barrier holds between blocks.
 // Dynamic shared memory is one buffer per launch (emu_dynamic_smem: the
@@ -32,6 +33,9 @@
 #include <random>
 #include <thread>
 #include <vector>
+
+using std::max;
+using std::min;
 
 #define __global__
 #define __device__
@@ -97,10 +101,41 @@ inline void __pipeline_wait_prior(size_t n) {
   }
 }
 
+// A barrier for `count` threads. By default a thread waits by sleeping;
+// with EMU_SPIN_BARRIER it waits by yielding its core, which is an order of
+// magnitude faster for a kernel that crosses barriers thousands of times a
+// launch (a block's threads far outnumber the cores, and each sleep costs a
+// wake-up) but keeps every core busy while it runs.
+class EmuBarrier {
+ public:
+  explicit EmuBarrier(int count) : count_(count) {}
+  void arrive_and_wait() {
+    const unsigned gen = gen_.load(std::memory_order_acquire);
+    if (arrived_.fetch_add(1, std::memory_order_acq_rel) + 1 == count_) {
+      arrived_.store(0, std::memory_order_relaxed);
+      gen_.fetch_add(1, std::memory_order_release);
+      gen_.notify_all();
+    } else {
+      while (gen_.load(std::memory_order_acquire) == gen) {
+#ifdef EMU_SPIN_BARRIER
+        std::this_thread::yield();
+#else
+        gen_.wait(gen, std::memory_order_acquire);
+#endif
+      }
+    }
+  }
+
+ private:
+  const int count_;
+  std::atomic<int> arrived_{0};
+  std::atomic<unsigned> gen_{0};
+};
+
 constexpr int kEmuMaxWarps = 32;
-inline std::barrier<>* emu_block;
-inline std::barrier<>* emu_warp[kEmuMaxWarps];
-inline float emu_xchg[kEmuMaxWarps][32];
+inline EmuBarrier* emu_block;
+inline EmuBarrier* emu_warp[kEmuMaxWarps];
+inline double emu_xchg[kEmuMaxWarps][32];  // any 8-byte value
 inline int emu_bits[kEmuMaxWarps][32];
 
 inline void __syncthreads() { emu_block->arrive_and_wait(); }
@@ -122,13 +157,35 @@ inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_warp[threadIdx.x / 32]->arrive_and_wait();
 }
 
-inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+// A warp shuffle: every lane posts v, then reads the value of lane
+// src(l); a source lane outside the warp reads the lane's own value, as
+// __shfl_up_sync does below lane `delta`.
+template <class T, class Src>
+inline T emu_shuffle(T v, Src src) {
+  static_assert(sizeof(T) <= sizeof(emu_xchg[0][0]));
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
-  emu_xchg[w][l] = v;
+  std::memcpy(&emu_xchg[w][l], &v, sizeof(T));
   emu_warp[w]->arrive_and_wait();
-  const float r = emu_xchg[w][l ^ lane_mask];
+  const int from = src(l);
+  T r = v;
+  if (from >= 0 && from < 32) std::memcpy(&r, &emu_xchg[w][from], sizeof(T));
   emu_warp[w]->arrive_and_wait();
   return r;
+}
+
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  return emu_shuffle(v, [&](int l) { return l ^ lane_mask; });
+}
+
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src_lane) {
+  return emu_shuffle(v, [&](int) { return src_lane; });
+}
+
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  return emu_shuffle(v, [&](int l) { return l - (int)delta; });
 }
 
 inline unsigned __ballot_sync(unsigned, int pred) {
@@ -162,11 +219,11 @@ inline void emu_run_grid(int blocks, int threads, size_t smem_bytes,
   emu_dynamic_smem = smem.data();
   gridDim.x = blocks;
   blockDim.x = threads;
-  std::barrier<> block(threads);
+  EmuBarrier block(threads);
   emu_block = &block;
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::vector<std::unique_ptr<EmuBarrier>> warps;
   for (int w = 0; w < threads / 32; ++w) {
-    warps.push_back(std::make_unique<std::barrier<>>(32));
+    warps.push_back(std::make_unique<EmuBarrier>(32));
     emu_warp[w] = warps.back().get();
   }
   std::vector<std::thread> pool;

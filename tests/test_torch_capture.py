@@ -23,6 +23,7 @@ import jax.numpy as jnp
 from asciichat_tpu.ops import audio as jaudio
 from asciichat_tpu_torch.ops import audio as taudio
 from asciichat_tpu_torch.utils import convert
+from test_torch_capture_emulated import GATE_PEAKS, gate_frames
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 SR = jaudio.SAMPLE_RATE
@@ -86,6 +87,21 @@ def test_noise_gate_bit_exact(n):
         opened += bool(topen) and not was
         closed += was and not bool(topen)
     assert opened >= 2 and closed >= 2  # the run really opens and closes the gate
+
+
+def test_noise_gate_hysteresis_above_one_like_jax():
+    """At hysteresis 1.5 a peak between the closed threshold and an open
+    gate's alternates the gate sample by sample; the plain gate does as
+    JAX's does, bit for bit."""
+    jenv, jopen = jnp.float32(0.0), jnp.asarray(True)
+    tenv, topen = torch.tensor(0.0), torch.tensor(True)
+    for k, frame in enumerate(gate_frames(12, GATE_PEAKS, [99 + k % 2 for k in
+                                                           range(len(GATE_PEAKS))])):
+        jy, jenv, jopen = jaudio.noise_gate(jnp.asarray(frame), jenv, jopen, hysteresis=1.5)
+        ty, tenv, topen = taudio.noise_gate(torch.from_numpy(frame), tenv, topen,
+                                            hysteresis=1.5)
+        np.testing.assert_array_equal(bits(ty), bits(jy), err_msg=f"frame {k}")
+        assert bits(tenv) == bits(jenv) and bool(topen) == bool(jopen), k
 
 
 def test_noise_gate_batched_leading_dims():

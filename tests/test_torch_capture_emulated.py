@@ -1,21 +1,21 @@
 """K5's source (csrc/capture.cu) run on the CPU under an emulation of the CUDA
-warp (tests/cuda_emu.h: 32 threads, warp shuffles, __syncwarp, dynamic shared
+block (tests/cuda_emu.h: 256 threads, barriers, warp shuffles, dynamic shared
 memory that starts as NaNs), against the plain capture_chain_reference of
 ops/audio.py, with the state carried from frame to frame as the client
 carries it (divergence control halves the weights between frames on each
 side, from its own stats).
 
-At one tap the NLMS dot products are single products, so the whole chain
-must agree bit for bit: output, weights, far tail, hangover, filters, gate
-and the frozen fraction (the energies are sums over the frame, in another
-order). At 64 and 256 taps the output and weights agree within rtol=2e-4,
-atol=2e-5 (the dot products sum lane by lane, then across the warp), the
-far tail, hangover and frozen fraction exactly. Without the AEC the chain is
-bit for bit the plain version's. Frames are of 1 to 480 samples, shorter and
-longer than the taps; each stage also runs alone, and in place (the new
-state over the old). It checks the kernel's logic on every CPU test run; the
-compiled kernel is checked on the card (test_torch_kernels.py,
-chip_smoke.py)."""
+K5 computes each sample's echo estimate through the blocked look-ahead's
+correction form, so with adaptation on it agrees with the literal scan
+within rtol=2e-4, atol=2e-5 (output and weights; the energies are sums in
+another order), with the far tail, hangover, gate state and frozen fraction
+exact. With a frozen filter (a hangover longer than the run carried in) the
+estimate is w0.x_j, a single product at one tap, so the whole chain agrees
+bit for bit; without the AEC it does too. Frames run from 1 to 3,072
+samples, on both sides of each block boundary, at 1 to 1,024 taps; each
+stage also runs alone, and in place (the new state over the old). It checks
+the kernel's logic on every CPU test run; the compiled kernel is checked on
+the card (test_torch_kernels.py, chip_smoke.py)."""
 
 import ctypes
 import re
@@ -30,7 +30,7 @@ from asciichat_tpu_torch.ops import audio
 from asciichat_tpu_torch.runtime import kernel_build
 
 TESTS = Path(__file__).resolve().parent
-LAUNCH = r"kernel<<<1, kLanes, smem, \(cudaStream_t\)stream>>>\("
+LAUNCH = r"kernel<<<1, kThreads, smem, \(cudaStream_t\)stream>>>\("
 DYNAMIC_SMEM = r"extern __shared__ float smem\[\];"
 TOL = dict(rtol=2e-4, atol=2e-5)
 SR = audio.SAMPLE_RATE
@@ -44,7 +44,7 @@ def build_emulated(source: str, out_dir: Path) -> ctypes.CDLL:
     """ac_capture_chain built by g++ from ``source`` (csrc/capture.cu's text)
     with the CUDA warp emulated."""
     src = source.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
-    src, n = re.subn(LAUNCH, "EMU_LAUNCH(kernel, kLanes, smem, ", src)
+    src, n = re.subn(LAUNCH, "EMU_LAUNCH(kernel, kThreads, smem, ", src)
     assert n == 1, "the kernel's launch line changed: update LAUNCH"
     src, n = re.subn(DYNAMIC_SMEM, "float* const smem = static_cast<float*>(emu_dynamic_smem);",
                      src)
@@ -53,7 +53,10 @@ def build_emulated(source: str, out_dir: Path) -> ctypes.CDLL:
     src += ("\nextern \"C\" void emu_quot(const float* a, const float* b, float* out, long n) {\n"
             "  for (long i = 0; i < n; ++i) out[i] = quot_by(a[i], b[i], quot(1.0f, b[i]));\n}\n")
     (out_dir / "capture_emu.cpp").write_text(src)
-    cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{TESTS}",
+    # the look-ahead crosses a barrier or a shuffle ~150 times a block: wait
+    # for them by yielding (tests/cuda_emu.h)
+    cmd = ["g++", "-std=c++20", "-O1", "-DEMU_SPIN_BARRIER", "-shared", "-fPIC", "-pthread",
+           f"-I{TESTS}",
            f"-I{kernel_build.CSRC_DIR}", "-o", str(out_dir / "libcapture_emu.so"),
            str(out_dir / "capture_emu.cpp")]
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
@@ -64,25 +67,35 @@ def build_emulated(source: str, out_dir: Path) -> ctypes.CDLL:
     return lib
 
 
+SOURCE = (kernel_build.CSRC_DIR / "capture.cu").read_text()
+BLOCK = int(re.search(r"constexpr int kBlock = (\d+);", SOURCE).group(1))  # look-ahead block
+HANGOVER = 1440
+FROZEN = 10 ** 6  # a hangover that outlasts every run: the filter never adapts
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    return build_emulated((kernel_build.CSRC_DIR / "capture.cu").read_text(),
-                          tmp_path_factory.mktemp("emu"))
+    return build_emulated(SOURCE, tmp_path_factory.mktemp("emu"))
 
 
-def fresh_state(taps: int) -> dict:
-    """The chain's state as numpy arrays, in K5's argument order."""
-    return {"weights": np.zeros(taps, np.float32), "far_tail": np.zeros(taps, np.float32),
-            "hang": np.zeros(1, np.int32), "hp_in": np.zeros(1, np.float32),
-            "hp_out": np.zeros(1, np.float32), "gate_env": np.zeros(1, np.float32),
-            "gate_open": np.zeros(1, np.uint8)}
+def fresh_state(taps: int, frozen: bool = False) -> dict:
+    """The chain's state as numpy arrays, in K5's argument order; a frozen
+    one carries seeded weights and a hangover of FROZEN samples."""
+    weights = np.zeros(taps, np.float32)
+    if frozen:
+        weights = np.random.default_rng(taps).normal(0, 0.3, taps).astype(np.float32)
+    return {"weights": weights, "far_tail": np.zeros(taps, np.float32),
+            "hang": np.full(1, FROZEN if frozen else 0, np.int32),
+            "hp_in": np.zeros(1, np.float32), "hp_out": np.zeros(1, np.float32),
+            "gate_env": np.zeros(1, np.float32), "gate_open": np.zeros(1, np.uint8)}
 
 
-def emu_frame(lib, stages, mic, far, state: dict, taps: int, in_place: bool = False):
+def emu_frame(lib, stages, mic, far, state: dict, taps: int, in_place: bool = False,
+              hangover: int = HANGOVER, hysteresis: float = 0.9):
     """One emulated K5 launch -> (out [n], stats [3], new state)."""
     n = len(mic)
     consts = audio.capture_consts(n, mu=0.5, geigel_t=0.5, hp_alpha=ALPHA,
-                                  gate_threshold=0.01)
+                                  gate_threshold=0.01, hysteresis=hysteresis)
     buf = np.full(n + 3, np.nan, np.float32)
     # a stage that does not run leaves its state as it was
     new = state if in_place else {
@@ -90,14 +103,14 @@ def emu_frame(lib, stages, mic, far, state: dict, taps: int, in_place: bool = Fa
         for (k, v), stage in zip(state.items(), STAGE_OF)}
     mic = np.ascontiguousarray(mic, np.float32)
     far = np.ascontiguousarray(far, np.float32)
-    rc = lib.ac_capture_chain(mic.ctypes.data, far.ctypes.data, n, taps, stages, 1440,
+    rc = lib.ac_capture_chain(mic.ctypes.data, far.ctypes.data, n, taps, stages, hangover,
                               *(a.ctypes.data for a in state.values()), consts.ctypes.data,
                               buf.ctypes.data, *(a.ctypes.data for a in new.values()), None)
     assert rc == 0
     return buf[:n], buf[n:], new
 
 
-def plain_frame(stages, mic, far, state: dict, taps: int):
+def plain_frame(stages, mic, far, state: dict, taps: int, hangover: int = HANGOVER):
     """The plain version of the same stages -> (out, stats, new state)."""
     t = {k: torch.from_numpy(v.copy()) for k, v in state.items()}
     t["hang"], t["gate_open"] = t["hang"][0], t["gate_open"][0].bool()
@@ -107,7 +120,7 @@ def plain_frame(stages, mic, far, state: dict, taps: int):
     if stages & audio.STAGE_AEC:
         x, t["weights"], t["far_tail"], t["hang"], stats = audio.echo_cancel_reference(
             x, torch.from_numpy(np.asarray(far, np.float32)), t["weights"], t["far_tail"],
-            t["hang"], taps=taps)
+            t["hang"], taps=taps, hangover=hangover)
     if stages & audio.STAGE_HIGHPASS:
         x, t["hp_in"], t["hp_out"] = audio.highpass_reference(x, t["hp_in"], t["hp_out"], ALPHA)
     if stages & audio.STAGE_GATE:
@@ -141,22 +154,43 @@ def scenario(seed: int, frames: int, n: int):
     echo = np.convolve(far, path)[:total].astype(np.float32)
     mic = echo + rng.normal(0, 0.02, total).astype(np.float32)
     q = frames // 4
-    flip = slice(q * n, (q + 3) * n)
-    mic[flip] = -echo[flip] + rng.normal(0, 0.02, 3 * n).astype(np.float32)
-    talk = slice(2 * q * n, (2 * q + 3) * n)
+    flip = slice(q * n, min(q + 3, frames) * n)
+    mic[flip] = -echo[flip] + rng.normal(0, 0.02, flip.stop - flip.start).astype(np.float32)
+    talk = slice(2 * q * n, min(2 * q + 3, frames) * n)
     mic[talk] += 0.3 * np.sin(2 * np.pi * 220 * np.arange(total)[talk] / SR).astype(np.float32)
     mic[(frames - 3) * n:] = 0.0
     far[(frames - 3) * n:] = 0.0
     return mic.reshape(frames, n), far.reshape(frames, n)
 
 
-def run(lib, stages, taps, mic, far, exact: bool, in_place: bool = False) -> int:
-    """Both versions over the frames; returns the divergence events."""
-    es, ps = fresh_state(taps), fresh_state(taps)
+def gate_frames(seed: int, peaks, lengths) -> list[np.ndarray]:
+    """Noise frames of the given lengths, each scaled to the given peak."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for peak, n in zip(peaks, lengths):
+        x = rng.normal(0, 1, n)
+        frames.append((x * (peak / np.abs(x).max())).astype(np.float32))
+    return frames
+
+
+# below both thresholds, between an open gate's at hysteresis 0.9 (0.009)
+# and the closed one (0.01), between that and an open gate's at 1.5 (0.015),
+# above both; each after an open and a closed gate, clear of the thresholds
+GATE_PEAKS = [0.0125, 0.0125, 0.02, 0.0095, 0.0095, 0.0125, 0.005, 0.0125, 0.0125, 0.02, 0.02,
+              0.0095, 0.0125, 0.005, 0.0125]
+
+
+def run(lib, stages, taps, mic, far, exact: bool, in_place: bool = False,
+        frozen: bool = False) -> int:
+    """Both versions over the frames; returns the divergence events. A
+    frozen run starts from fresh_state(taps, frozen=True) with a hangover of
+    FROZEN samples, so no sample adapts."""
+    es, ps = fresh_state(taps, frozen), fresh_state(taps, frozen)
+    hangover = FROZEN if frozen else HANGOVER
     events = 0
     for k in range(len(mic)):
-        eo, estats, es = emu_frame(lib, stages, mic[k], far[k], es, taps, in_place)
-        po, pstats, ps = plain_frame(stages, mic[k], far[k], ps, taps)
+        eo, estats, es = emu_frame(lib, stages, mic[k], far[k], es, taps, in_place, hangover)
+        po, pstats, ps = plain_frame(stages, mic[k], far[k], ps, taps, hangover)
         label = f"frame {k}"
         if exact:
             np.testing.assert_array_equal(bits(eo), bits(po), err_msg=label)
@@ -181,9 +215,27 @@ def run(lib, stages, taps, mic, far, exact: bool, in_place: bool = False) -> int
 
 @pytest.mark.parametrize("n", [1, 48, 480])
 def test_one_tap_is_bit_exact(emulated, n):
+    """A frozen filter at one tap: the echo estimate w0.x_j is one product."""
     frames = {1: 200, 48: 24, 480: 8}[n]
     mic, far = scenario(n, frames, n)
-    run(emulated, ALL, 1, mic, far, exact=True)
+    run(emulated, ALL, 1, mic, far, exact=True, frozen=True)
+
+
+@pytest.mark.parametrize("n", [1, 48, 480])
+def test_one_tap_adapting_within_tolerance(emulated, n):
+    frames = {1: 200, 48: 24, 480: 8}[n]
+    mic, far = scenario(n, frames, n)
+    run(emulated, ALL, 1, mic, far, exact=False)
+
+
+@pytest.mark.parametrize("taps", [1, 32, 64, 256, 1024])
+@pytest.mark.parametrize("n", [1, BLOCK - 1, BLOCK, BLOCK + 1, 100, 480, 3072])
+def test_block_boundaries(emulated, n, taps):
+    """Frames that end just before, on and just after a block boundary of
+    the look-ahead, and across many blocks, at every weights-a-lane shape."""
+    frames = {1: 8, 3072: 1}.get(n, 2)
+    mic, far = scenario(n * 7 + taps, frames, n)
+    run(emulated, ALL, taps, mic, far, exact=False)
 
 
 @pytest.mark.parametrize("taps,n,frames", [(64, 96, 24), (64, 1, 150), (64, 40, 12),
@@ -210,15 +262,41 @@ def test_without_aec_bit_exact(emulated, n):
 @pytest.mark.parametrize("stages", [audio.STAGE_AEC, audio.STAGE_HIGHPASS, audio.STAGE_GATE])
 def test_each_stage_alone(emulated, stages):
     mic, far = scenario(stages, 8, 96)
-    taps = 1 if stages & audio.STAGE_AEC else 0
-    run(emulated, stages, taps, mic, far, exact=True)
+    aec = bool(stages & audio.STAGE_AEC)
+    run(emulated, stages, 64 if aec else 0, mic, far, exact=not aec)
+    if aec:
+        run(emulated, stages, 1, mic, far, exact=True, frozen=True)
+
+
+@pytest.mark.parametrize("hysteresis", [0.9, 1.0, 1.5])
+def test_gate_hysteresis(emulated, hysteresis):
+    """The gate alone, from a closed gate and then carried, over frames whose
+    peaks lie below the closed threshold, between it and an open gate's, and
+    above both, of odd and even lengths: bit for bit the plain version. At
+    hysteresis 1.5 a peak between the two opens and closes the gate in turn,
+    sample by sample, so a frame of odd length leaves it in the other state."""
+    lengths = [99 + k % 2 for k in range(len(GATE_PEAKS))]
+    state = fresh_state(0)
+    env, is_open = torch.tensor(0.0), torch.tensor(False)
+    flips = 0
+    for k, frame in enumerate(gate_frames(11, GATE_PEAKS, lengths)):
+        out, _, state = emu_frame(emulated, audio.STAGE_GATE, frame, frame, state, 0,
+                                  hysteresis=hysteresis)
+        was = bool(is_open)
+        want, env, is_open = audio.noise_gate_reference(torch.from_numpy(frame), env, is_open,
+                                                        threshold=0.01, hysteresis=hysteresis)
+        np.testing.assert_array_equal(bits(out), bits(want), err_msg=f"frame {k}")
+        assert bits(state["gate_env"][0]) == bits(env) and bool(state["gate_open"][0]) == bool(
+            is_open), k
+        flips += GATE_PEAKS[k] == 0.0125 and bool(is_open) != was
+    assert flips >= 2  # the run opens the gate on such peaks, twice
 
 
 def test_state_in_place(emulated):
     """The new state written over the old, as ClientAudioPipeline launches."""
     mic, far = scenario(7, 8, 96)
     run(emulated, ALL, 64, mic, far, exact=False, in_place=True)
-    run(emulated, ALL, 1, mic, far, exact=True, in_place=True)
+    run(emulated, ALL, 1, mic, far, exact=True, in_place=True, frozen=True)
 
 
 def test_quotient_is_the_ieee_division(emulated):

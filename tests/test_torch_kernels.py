@@ -7,8 +7,9 @@ where ``torch.cuda.is_available()`` is false; on the card they run with
 The wrappers' checks and the CPU dispatch run everywhere. Tolerance: exact
 for K1-K3 (uint8 records); K4's float32 mixes are held to rtol=2e-4,
 atol=2e-5, the bound tests/test_audio.py holds the JAX mixer to, and so are
-K5's output and weights (its NLMS dot products sum in another order; the far
-tail, hangover and frozen fraction exactly, and without the AEC the whole
+K5's output and weights (its echo estimates come through the blocked
+look-ahead's correction form and its dot products sum in another order; the
+far tail, hangover and frozen fraction exactly, and without the AEC the whole
 chain bit for bit).
 """
 
@@ -23,7 +24,7 @@ from asciichat_tpu_torch.ops import audio, cells, pixel, resize
 from asciichat_tpu_torch.runtime import kernel_build
 from asciichat_tpu_torch.runtime.device import check_tensor, default_device, require_cuda
 
-from test_torch_capture_emulated import scenario
+from test_torch_capture_emulated import GATE_PEAKS, gate_frames, scenario
 
 
 @pytest.fixture(autouse=True)
@@ -296,10 +297,13 @@ def _chain_frames(state, mic, far, use_aec: bool, taps: int):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("taps,n", [(256, 480), (256, 100), (64, 1), (100, 960), (1024, 480)])
+@pytest.mark.parametrize("taps,n", [(256, 480), (256, 100), (64, 1), (100, 960), (1024, 480),
+                                    (32, 33), (1024, 3072)])
 def test_capture_kernel_matches_plain(cuda, taps, n):
     """K5 against the plain chain over 12 frames of echo, a flipped echo
-    path, double talk and silence, one launch a frame."""
+    path, double talk and silence, one launch a frame; across a block
+    boundary of the look-ahead, and at the largest frame and filter (whose
+    shared memory passes 48 KB)."""
     mic, far = (torch.from_numpy(a) for a in scenario(taps + n, 12, n))
     before = audio.CAPTURE_KERNEL.launches
     got = _chain_frames(_chain_state(taps, cuda), mic.to(cuda), far.to(cuda), True, taps)
@@ -321,6 +325,23 @@ def test_capture_kernel_without_aec_bit_exact(cuda, n):
     for k, ((go, _, gst), (wo, _, wst)) in enumerate(zip(got, want)):
         assert torch.equal(go.cpu(), wo), f"frame {k}"
         assert all(torch.equal(a.cpu(), b) for a, b in zip(gst[3:], wst[3:])), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hysteresis", [0.9, 1.5])
+def test_noise_gate_kernel_hysteresis(cuda, hysteresis):
+    """K5's gate alone against the plain gate, bit for bit, over peaks below,
+    between and above the two thresholds (tests/test_torch_capture_emulated.py
+    test_gate_hysteresis)."""
+    lengths = [99 + k % 2 for k in range(len(GATE_PEAKS))]
+    genv, gopen = torch.zeros((), device=cuda), torch.zeros((), dtype=torch.bool, device=cuda)
+    wenv, wopen = torch.tensor(0.0), torch.tensor(False)
+    for k, frame in enumerate(gate_frames(13, GATE_PEAKS, lengths)):
+        x = torch.from_numpy(frame)
+        got, genv, gopen = audio.noise_gate(x.to(cuda), genv, gopen, hysteresis=hysteresis)
+        want, wenv, wopen = audio.noise_gate(x, wenv, wopen, hysteresis=hysteresis)
+        assert torch.equal(got.cpu(), want), f"frame {k}"
+        assert torch.equal(genv.cpu(), wenv) and bool(gopen) == bool(wopen), k
 
 
 @pytest.mark.gpu

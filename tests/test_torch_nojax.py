@@ -21,6 +21,7 @@ sys.modules["jaxlib"] = None
 import asciichat_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(asciichat_tpu_torch.__path__,
                                                "asciichat_tpu_torch.")]
+assert "asciichat_tpu_torch.ops.rain" in names, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -17,8 +17,9 @@ from asciichat_tpu.render import palette as pal
 from asciichat_tpu.render.pipeline import AsciiRenderer as JaxRenderer
 from asciichat_tpu.render.types import ColorLevel, RenderMode, TerminalCapabilities
 from asciichat_tpu_torch.apps import main as tmain
-from asciichat_tpu_torch.models.mirror import MATRIX_NOT_PORTED, MirrorSession
+from asciichat_tpu_torch.models.mirror import MirrorSession
 from asciichat_tpu_torch.ops import cells as tcells
+from asciichat_tpu_torch.net.update_checker import UpdateChecker
 from asciichat_tpu_torch.ops import filters as tfilt
 from asciichat_tpu_torch.render.pipeline import AsciiRenderer
 
@@ -156,16 +157,24 @@ def test_mirror_snapshot_matches_oracle(color_filter, capfdbinary):
 
 
 def test_mirror_matrix_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MirrorSession(_StillSource(None), TerminalCapabilities(), 40, 12,
-                      pal.DEFAULT_PALETTE, matrix=True, device=CPU)
-    assert "Queue 1" in MATRIX_NOT_PORTED
+    """The mirror's ``matrix=True``: the snapshot is the oracle's bytes for
+    the frame that the rain overlaid (tests/test_torch_rain.py holds the
+    overlay to the JAX package's)."""
+    frame = synthetic_frame(60, 80, seed=7)
+    caps = TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.HALF_BLOCK)
+    session = MirrorSession(_StillSource(frame), caps, 40, 12, pal.DEFAULT_PALETTE,
+                            matrix=True, device=CPU)
+    seen = []
+    convert = session.renderer.convert
+    session.renderer.convert = lambda f, *a, **k: seen.append(np.asarray(f)) or convert(f, *a, **k)
+    out = session.run_snapshot()
+    assert seen[0].shape == frame.shape and not np.array_equal(seen[0], frame)
+    assert out == oracle.ascii_convert_with_capabilities(seen[0], 40, 12, caps)
 
 
 @pytest.mark.parametrize("argv", [
     ["discovery"], ["client", "127.0.0.1", "--ws"], ["client", "127.0.0.1", "--webrtc"],
     ["client", "--browse"], ["discovery-service"], ["bench"],
-    ["mirror", "--test-pattern", "--matrix", "--snapshot"],
     ["mirror", "--test-pattern", "--render-file", "out.y4m"],
     ["server", "--port", "0", "--ws-port", "0"], ["server", "--port", "0", "--mdns"],
     ["completions", "bash"],
@@ -188,3 +197,52 @@ def test_mirror_cli_snapshot_without_jax():
     lines = out.stdout.decode().rstrip("\n").split("\n")
     assert len(lines) == 10
     assert all(len(line) == 40 for line in lines)
+
+
+def test_mirror_cli_matrix_snapshot(monkeypatch, capfdbinary):
+    """``mirror --test-pattern --matrix --snapshot`` on the plain versions."""
+    monkeypatch.setenv("ASCIICHAT_TORCH_DEVICE", "cpu")
+    argv = ["mirror", "--test-pattern", "--matrix", "--snapshot", "--width", "40",
+            "--height", "10", "--color-mode", "NONE", "--stretch"]
+    assert tmain.main(argv) == 0
+    lines = capfdbinary.readouterr().out.rstrip(b"\n").split(b"\n")
+    assert len(lines) == 10 and all(len(line) == 40 for line in lines)
+
+
+def _fake_mode(monkeypatch):
+    """Stand in for the mirror, writing MODE to stderr when it starts."""
+    def mode(args):
+        print("MODE", file=sys.stderr)
+        return 0
+    monkeypatch.setattr(tmain, "cmd_mirror", mode)
+
+
+def test_update_check_prints_the_banner_first(monkeypatch, capsys):
+    _fake_mode(monkeypatch)
+    monkeypatch.setattr(UpdateChecker, "check", lambda self, force=False: "v99.0.0")
+    assert tmain.main(["mirror", "--update-check"]) == 0
+    err = capsys.readouterr().err
+    assert "update available: v99.0.0" in err
+    assert err.index("update available") < err.index("MODE")
+
+
+def _refuse(*args, **kwargs):
+    raise OSError("no network")
+
+
+@pytest.mark.parametrize("where", ["fetch", "check"])
+def test_update_check_is_silent_on_failure(where, monkeypatch, capsys, tmp_path):
+    """A failed fetch (no cache: the checker asks the network, which the
+    fake refuses) and a checker that raises both leave no trace."""
+    _fake_mode(monkeypatch)
+    monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path))
+    monkeypatch.setattr(UpdateChecker, "fetch_latest" if where == "fetch" else "check", _refuse)
+    assert tmain.main(["mirror", "--update-check"]) == 0
+    assert capsys.readouterr().err == "MODE\n"
+
+
+def test_no_update_check_without_the_flag(monkeypatch, capsys):
+    _fake_mode(monkeypatch)
+    monkeypatch.setattr(UpdateChecker, "check", _refuse)
+    assert tmain.main(["mirror"]) == 0
+    assert capsys.readouterr().err == "MODE\n"

@@ -72,6 +72,7 @@ import importlib, pkgutil
 import asciichat_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(asciichat_tpu_torch.__path__,
                                                "asciichat_tpu_torch.")]
+assert "asciichat_tpu_torch.ops.rain" in names, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -93,6 +94,19 @@ def test_every_module_imports_without_the_jax_package():
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr[-3000:]
     assert int(out.stdout.split()[-1]) >= 50  # every module was walked
+
+
+def test_mirror_matrix_without_the_jax_package():
+    """``mirror --matrix`` (ops/rain.py on the plain versions) renders a
+    snapshot with ``asciichat_tpu`` blocked."""
+    code = BLOCK + ("from asciichat_tpu_torch.apps.main import main\n"
+                    "sys.exit(main(['mirror', '--test-pattern', '--matrix', '--snapshot', "
+                    "'--width', '40', '--height', '10', '--color-mode', 'NONE', '--stretch']))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, timeout=180)
+    assert out.returncode == 0, out.stderr.decode()[-3000:]
+    lines = out.stdout.decode().rstrip("\n").split("\n")
+    assert len(lines) == 10 and all(len(line) == 40 for line in lines)
 
 
 # -- the server with asciichat_tpu blocked ------------------------------------
