@@ -11,8 +11,10 @@ The one piece of device work is the audio capture chain (echo canceller,
 highpass, noise gate: ``ops/audio.ClientAudioPipeline``, K5 on the card),
 built only when the client has an audio source, on
 ``runtime/device.default_device()`` unless a device is given: a client
-without audio needs no card. Transport is TCP; the WebSocket and WebRTC
-transports (``--ws``, ``--webrtc``) are not ported yet. ``net/crypto.py`` and
+without audio needs no card. Transport is TCP, or WebSocket with ``use_ws``
+(``--ws``, ``net/websocket.py``); the WebRTC transport (``--webrtc``) is not
+ported yet. ``--browse`` lists the servers announced over mDNS
+(``net/mdns.py``). ``net/crypto.py`` and
 ``net/handshake.py`` (which need ``cryptography``) are imported only for an
 encrypted session.
 """
@@ -76,9 +78,11 @@ class AsciiChatClient:
         gpg_identity=None,
         use_opus: bool = False,
         device=None,
+        use_ws: bool = False,
     ):
         self.host = host
         self.port = port
+        self.use_ws = use_ws
         self.source = source
         self.wire_caps = wire_caps or proto.WireCapabilities()
         self.capture_fps = min(capture_fps, CAPTURE_FPS_CAP)
@@ -398,6 +402,10 @@ class AsciiChatClient:
                     self._stop.set()
 
     async def _dial(self):
+        if self.use_ws:
+            from asciichat_tpu_torch.net.websocket import connect_ws
+
+            return await connect_ws(self.host, self.port)
         return await connect_tcp(self.host, self.port)
 
     async def _session(self, max_frames: int | None) -> None:
@@ -599,14 +607,25 @@ class AsciiChatClient:
 
 
 def main(args) -> int:
-    """``client`` mode over TCP (``apps/main.cmd_client`` turns away the
-    modes that are not ported: ``--browse``, ``--ws``, ``--webrtc``)."""
+    """``client`` mode over TCP or WebSocket, or ``--browse`` (``apps/main.
+    cmd_client`` turns away ``--webrtc``, which is not ported)."""
     from asciichat_tpu_torch.render.types import RenderMode
     from asciichat_tpu_torch.runtime.framesource import open_source
 
-    if args.address is None:
-        print("client: an address is required", flush=True)
+    if args.address is None and not args.browse:
+        print("client: an address is required (or use --browse)", flush=True)
         return 2
+    if args.browse:
+        # LAN server browser (lib/ui/mdns.c listing role)
+        from asciichat_tpu_torch.net.mdns import discover
+
+        found = discover(timeout=2.0)
+        if not found:
+            print("no ascii-chat servers announced on this LAN")
+            return 1
+        for svc in found:
+            print(f"{svc.instance}  {svc.address}:{svc.port}  {svc.txt}")
+        return 0
 
     caps = term.detect_capabilities(
         render_mode=RenderMode(args.render_mode),
@@ -659,7 +678,7 @@ def main(args) -> int:
                              audio_sink=audio_sink, want_h265=args.h265,
                              audio_gain=args.audio_gain, flip_x=args.flip_x,
                              flip_y=args.flip_y, show_fps=args.show_fps,
-                             use_opus=args.opus)
+                             use_opus=args.opus, use_ws=args.ws)
     try:
         asyncio.run(client.run(max_frames=args.max_frames))
     except KeyboardInterrupt:

@@ -7,11 +7,11 @@ server and client.
 
 :func:`build_parser` is built from the port's options registry
 (``utils/options.py``) as ``asciichat_tpu/apps/main.py`` builds it, so flags,
-help and defaults are the reference CLI's. ``mirror``, ``server`` and
-``client`` (over TCP) are ported; every other mode (discovery, ...), mirror's
-``--render-file``, the server's ``--ws-port`` and
-``--mdns``, the client's ``--ws``, ``--webrtc`` and ``--browse``, and
-``--config`` exit non-zero with "not yet ported". The device is
+help and defaults are the reference CLI's. ``mirror`` (with
+``--render-file``), ``server`` (with ``--ws-port`` and ``--mdns``) and
+``client`` (over TCP or ``--ws``, and ``--browse``) are ported; every other
+mode (discovery, ...), the client's ``--webrtc`` and ``--config`` exit
+non-zero with "not yet ported". The device is
 ``ASCIICHAT_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` for the plain PyTorch
 versions); a client uses it only for its audio capture chain.
 """
@@ -56,14 +56,33 @@ def cmd_mirror(args) -> int:
     from asciichat_tpu_torch.runtime.framesource import open_source
     from asciichat_tpu_torch.utils import term
 
-    if args.render_file:
-        return _not_ported("mirror --render-file")
     caps = term.detect_capabilities(RenderMode(args.render_mode), args.color_mode)
     w, h = term.terminal_size(args.width, args.height)
+    palette = BUILTIN_PALETTES.get(args.palette, args.palette)
+    # offline rendering decodes flat out; live playback is PTS-paced
     source = open_source(test_pattern=args.test_pattern, file=args.file,
-                         loop=args.loop, stdin_size=args.stdin_size)
+                         loop=args.loop, pace=not args.render_file,
+                         stdin_size=args.stdin_size)
+    if args.render_file:
+        from asciichat_tpu_torch.models.renderfile import render_to_file
+
+        audio_source = None
+        if args.tone_hz is not None or args.audio_wav:
+            from asciichat_tpu_torch.runtime.audiodev import open_audio_source
+
+            audio_source = open_audio_source(tone_hz=args.tone_hz,
+                                             wav=args.audio_wav)
+        # Y4M headers and the audio frame math need an integer rate >= 1:
+        # a legal fractional --fps (0 < fps <= 144) must not truncate to 0
+        # (invalid F0:1 header + ZeroDivisionError in the audio mux)
+        n = render_to_file(source, args.render_file, caps, w, h, palette,
+                           max_frames=args.max_frames or 300,
+                           fps=max(1, round(args.fps)),
+                           audio_source=audio_source)
+        print(f"rendered {n} frames to {args.render_file}")
+        return 0
     session = MirrorSession(
-        source, caps, w, h, BUILTIN_PALETTES.get(args.palette, args.palette),
+        source, caps, w, h, palette,
         fps_limit=args.fps, color_filter=args.color_filter,
         flip_x=args.flip_x, flip_y=args.flip_y, stretch=args.stretch,
         show_fps=args.show_fps, matrix=args.matrix,
@@ -76,20 +95,12 @@ def cmd_mirror(args) -> int:
 
 
 def cmd_server(args) -> int:
-    if args.ws_port is not None:
-        return _not_ported("server --ws-port (WebSocket, WebRTC and the web client)")
-    if args.mdns:
-        return _not_ported("server --mdns")
     from asciichat_tpu_torch.apps import server
 
     return server.main(args)
 
 
 def cmd_client(args) -> int:
-    if args.browse:
-        return _not_ported("client --browse (LAN discovery over mDNS)")
-    if args.ws:
-        return _not_ported("client --ws (the WebSocket transport)")
     if args.webrtc:
         return _not_ported("client --webrtc (the WebRTC transport)")
     from asciichat_tpu_torch.apps import client

@@ -22,8 +22,11 @@ order and under the same names; only the device seam differs:
   a client opens with a crypto handshake packet (types 1000-1199) or an auth
   option is given, so a plaintext server runs where ``cryptography`` is not
   installed; an auth option without it refuses to start;
-- it serves TCP only: WebSocket, WebRTC, the web client and mDNS are not yet
-  ported (``apps/main.py`` refuses ``--ws-port`` and ``--mdns``).
+- it serves TCP, WebSocket with the browser client's page (``ws_port``,
+  ``net/websocket.py``, ``apps/webclient.py``) and announces itself over mDNS
+  (``mdns``, ``net/mdns.py``); WebRTC signaling is not ported yet, so the
+  WebSocket listener answers no POST (the JAX server does the same wherever
+  ``net/dtls`` is unavailable).
 The host modules it uses (``net/``, ``runtime/``, ``utils/``, ``render/``)
 are the port's own copies of the JAX package's.
 The device is ``ASCIICHAT_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` for
@@ -156,7 +159,8 @@ def _client_palette(wc, server_palette: str) -> str:
 class AsciiChatServer:
     def __init__(self, host: str = "0.0.0.0", port: int = 27224,
                  palette: str = pal.DEFAULT_PALETTE, compression_level: int = 1,
-                 password: str | None = None, inspect_port: int | None = None,
+                 password: str | None = None, ws_port: int | None = None,
+                 mdns: bool = False, inspect_port: int | None = None,
                  status_screen: bool = False, allowed_keys=None,
                  gpg_keyring=None, host_identity=None):
         self.status_screen = status_screen
@@ -167,6 +171,8 @@ class AsciiChatServer:
         self.host_identity = host_identity
         self.host = host
         self.port = port
+        self.ws_port = ws_port
+        self.mdns = mdns
         self.inspect_port = inspect_port
         self.password = password
         self.palette = palette
@@ -1010,6 +1016,23 @@ class AsciiChatServer:
         self._server = await serve_tcp(self._handle_conn, self.host, self.port)
         self.port = self._server.sockets[0].getsockname()[1]  # port 0: the bound one
         log.info("listening on %s:%d (tcp)", self.host, self.port)
+        ws_server = None
+        if self.ws_port:
+            from asciichat_tpu_torch.apps.webclient import make_http_handler
+            from asciichat_tpu_torch.net.websocket import serve_ws
+
+            ws_server = await serve_ws(self._handle_conn, self.host, self.ws_port,
+                                       pages=make_http_handler())
+            log.info("listening on %s:%d (websocket + browser client page)",
+                     self.host, self.ws_port)
+        announcer = None
+        if self.mdns:
+            from asciichat_tpu_torch.net.mdns import MdnsAnnouncer
+
+            announcer = MdnsAnnouncer("asciichat", self.port,
+                                      {"ver": "1", "ws": str(self.ws_port or 0)})
+            announcer.start()
+            log.info("mDNS announcing _asciichat._tcp.local")
         insp = None
         if self.inspect_port is not None:
             from asciichat_tpu_torch.runtime.inspector import Inspector
@@ -1032,6 +1055,10 @@ class AsciiChatServer:
             tick.cancel()
             if status_task:
                 status_task.cancel()
+            if ws_server:
+                ws_server.close()
+            if announcer:
+                announcer.stop()
             if insp:
                 insp.stop()
 
@@ -1072,7 +1099,8 @@ class AsciiChatServer:
         screen = StatusScreen(
             "server",
             lambda: {
-                "listen": f"{self.host}:{self.port}",
+                "listen": f"{self.host}:{self.port}"
+                          + (f" ws:{self.ws_port}" if self.ws_port else ""),
                 "clients": f"{len(self.clients)}/{MAX_CLIENTS}",
                 "tick": f"{self.ticks} ({self.device})",
                 "stats": self.stats.report(len(self.clients)),
@@ -1140,7 +1168,8 @@ def main(args) -> int:
                              palette=pal.BUILTIN_PALETTES.get(args.palette,
                                                               args.palette),
                              compression_level=args.compress,
-                             password=args.password, inspect_port=args.inspect_port,
+                             password=args.password, ws_port=args.ws_port,
+                             mdns=args.mdns, inspect_port=args.inspect_port,
                              status_screen=args.status and _sys.stdout.isatty(),
                              allowed_keys=allowed, gpg_keyring=gpg_keyring,
                              host_identity=host_identity)

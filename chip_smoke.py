@@ -67,12 +67,35 @@ so the exit code is non-zero:
     ``python -m asciichat_tpu_torch.apps.main client`` with the picture on
     stdin and a tone exits 0 after 20 frames, the last byte-identical to the
     oracle;
-14. the kernels, their launches on each path, their times against the
+14. the launch counts of every path so far (each must be > 0);
+15. mirror ``--render-file`` (``models/renderfile.py``: records on the
+    card, then the glyph raster or block colours and the YCbCr conversion
+    in plain PyTorch on the card): 30 test-pattern frames at 203x64 in each
+    of the 10 modes, with the standard and the ``blocks`` palette, rendered
+    on the card and on the CPU (the plain version, which the CPU tests hold
+    to the JAX package): the two ``.y4m`` files are equal byte for byte, and
+    each frame launched K2 once, or K1 twice (top and bottom rows) in the two
+    half-block RGB modes, and nothing else; one frame's time split (upload,
+    device, fetch, host write) and ``render_to_file``'s frames/s in three
+    modes; the CLI's ``mirror --test-pattern --render-file
+    build/chip_smoke.y4m --max-frames 30`` in a subprocess; an ``.mp4``
+    through ``NativeRecorder`` where the libavcodec shim loads and an encoder
+    opens (a line says whether it ran and why);
+16. web: ``apps.main server --ws-port P --mdns`` in a subprocess on the card,
+    its mDNS socket an in-process bus (``MDNS_BUS``: nothing is sent onto
+    the machine's network); the port's ``AsciiChatClient(use_ws=True)`` in
+    this process gets frames byte-identical to the oracle; a GET of every
+    route of ``web.ASSETS`` returns the port's file bytes, and
+    ``/servers.json`` (the server's own ``discover(timeout=2.0)``) lists the
+    server's announcement; the inspector shows the card and no failed tick;
+17. the kernels, their launches on each path, their times against the
     plain versions and their bounds, as one JSON line. A kernel's
     ``launches`` is the count on its user-facing path: the mirror (phase 6)
     for K1 and K2, the live server (phase 11) for K3 and K4, the live client
     (phase 13) for K5;
-    ``launches_by_path`` holds every path's own count. ``ms`` is the eager
+    ``launches_by_path`` holds every path's own count (``render_file``:
+    phase 15's renders on the card); the line also carries phase 6b's
+    ``rain``, phase 15's ``render_file`` times and phase 16's ``web``. ``ms`` is the eager
     time (CUDA events around back-to-back wrapper calls), ``device_ms`` the
     device-only time (calls replayed from one CUDA graph); K3's entry adds
     phase 5b's ``three_groups``. ``bound_ms`` is
@@ -101,6 +124,7 @@ hangover, gate state and frozen fraction exactly.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import io
 import json
 import os
@@ -115,8 +139,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from asciichat_tpu_torch import web
 from asciichat_tpu_torch.apps.client import AsciiChatClient
-from asciichat_tpu_torch.models import server
+from asciichat_tpu_torch.models import renderfile, server
 from asciichat_tpu_torch.models.mirror import MirrorSession
 from asciichat_tpu_torch.models.session import DisplaySink
 from asciichat_tpu_torch.net import packet as pkt
@@ -126,7 +151,7 @@ from asciichat_tpu_torch.ops import audio, cells, compositor, filters, pixel, ra
 from asciichat_tpu_torch.render import emitter, oracle, palette
 from asciichat_tpu_torch.render.pipeline import AsciiRenderer, plan_render
 from asciichat_tpu_torch.render.types import ColorLevel, RenderMode, TerminalCapabilities
-from asciichat_tpu_torch.runtime import kernel_build
+from asciichat_tpu_torch.runtime import codecs, kernel_build
 from asciichat_tpu_torch.runtime.audiodev import ToneSource
 from asciichat_tpu_torch.runtime.device import require_cuda
 from asciichat_tpu_torch.runtime.framesource import TestPatternSource
@@ -177,10 +202,13 @@ CAPTURE_ARGS = dict(use_aec=True, taps=256, mu=0.5, geigel_t=0.5, hangover=1440,
                     gate_threshold=0.01)  # the one chain the client builds
 CLIENT_AUDIO_FRAMES = 500  # the live client's tone: 5 s of 10 ms frames
 CLI_FRAMES = 20
+RF_FRAMES = 30  # phase 15's test-pattern frames per render
+RF_PALETTES = ("standard", "blocks")  # blocks: UTF-8 glyphs, atlas row 95
+RF_TIMED_MODES = ("truecolor_fg", "halfblock_truecolor", "256color")
 
 KERNELS = (resize.RESIZE_KERNEL, cells.CELL_RECORDS_KERNEL,
            server.RENDER_GROUP_KERNEL, audio.MIXER_KERNEL, audio.CAPTURE_KERNEL)
-# the path whose launches a kernel's `launches` reports (see phase 14)
+# the path whose launches a kernel's `launches` reports (see phase 17)
 MAIN_PATH = {"resize_nn": "mirror", "cell_records": "mirror",
              "render_group": "live_server", "mixer": "live_server",
              "capture_chain": "live_client"}
@@ -935,6 +963,15 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+async def until(cond, what: str) -> None:
+    """Poll ``cond()`` until it holds, or fail after LIVE_WAIT_S."""
+    end = asyncio.get_running_loop().time() + LIVE_WAIT_S
+    while not cond():
+        if asyncio.get_running_loop().time() > end:
+            raise AssertionError(f"timed out waiting for {what}")
+        await asyncio.sleep(0.01)
+
+
 class LiveClient:
     """A raw plaintext ACIP client: a reader task records what arrives."""
 
@@ -1051,41 +1088,53 @@ async def live_session(port: int, pictures: list[np.ndarray], wants: list[bytes]
 
 
 class ServerProcess:
-    """``python -m asciichat_tpu_torch.apps.main server`` in a subprocess on
-    the card (ASCIICHAT_TORCH_DEVICE unset), its log in ``build/``; entered,
-    it waits until the server accepts; left on an error, it prints the log's
-    tail; it always stops the server."""
+    """``python -m asciichat_tpu_torch.apps.main server`` (with ``extra``
+    arguments, after ``prelude``'s code where one is given) in a subprocess
+    on the card (ASCIICHAT_TORCH_DEVICE unset), its log in ``build/``;
+    entered, it waits until the server accepts; left on an error, it prints
+    the log's tail; it always stops the server."""
 
-    def __init__(self, log_name: str):
+    def __init__(self, log_name: str, *extra: str, prelude: str = ""):
         self.port, self.inspect_port = free_port(), free_port()
         self.log_path = ROOT / "build" / log_name
+        self.extra, self.prelude = extra, prelude
         self.proc = None
 
     def __enter__(self) -> "ServerProcess":
         self.log_path.parent.mkdir(parents=True, exist_ok=True)
         env = dict(os.environ)
         env.pop("ASCIICHAT_TORCH_DEVICE", None)  # the server's default device: the card
-        cmd = [sys.executable, "-m", "asciichat_tpu_torch.apps.main", "server", "--host",
-               "127.0.0.1", "--port", str(self.port), "--inspect-port",
-               str(self.inspect_port), "--log-level", "WARNING"]
+        argv = ["server", "--host", "127.0.0.1", "--port", str(self.port), "--inspect-port",
+                str(self.inspect_port), "--log-level", "WARNING", *self.extra]
+        if self.prelude:  # the code runs first in the server's process
+            cmd = [sys.executable, "-c", self.prelude + "import sys\n"
+                   "from asciichat_tpu_torch.apps.main import main\n"
+                   f"sys.exit(main({argv!r}))\n"]
+        else:
+            cmd = [sys.executable, "-m", "asciichat_tpu_torch.apps.main", *argv]
         with open(self.log_path, "wb") as log:
             self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log, stderr=log)
         try:
             t0 = time.monotonic()
-            while True:
-                self.check()
-                try:
-                    socket.create_connection(("127.0.0.1", self.port), timeout=1).close()
-                    break
-                except OSError:
-                    if time.monotonic() - t0 > LIVE_WAIT_S:
-                        raise RuntimeError("server never accepted a connection") from None
-                    time.sleep(0.1)
+            self.wait_accepting(self.port)
             say(f"  server accepting after {time.monotonic() - t0:.1f} s")
         except BaseException:
             self.__exit__(*sys.exc_info())
             raise
         return self
+
+    def wait_accepting(self, port: int) -> None:
+        """Wait until the server accepts on ``port``; fail if it exits."""
+        t0 = time.monotonic()
+        while True:
+            self.check()
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=1).close()
+                return
+            except OSError:
+                if time.monotonic() - t0 > LIVE_WAIT_S:
+                    raise RuntimeError(f"server never accepted on port {port}") from None
+                time.sleep(0.1)
 
     def check(self) -> None:
         if self.proc.poll() is not None:
@@ -1323,22 +1372,13 @@ async def live_client_session(port: int, picture: np.ndarray, want: bytes) -> di
         return out
 
     pipeline.process = timed
-    loop = asyncio.get_running_loop()
-
-    async def until(cond, what: str) -> None:
-        end = loop.time() + LIVE_WAIT_S
-        while not cond():
-            if loop.time() > end:
-                raise AssertionError(f"live client: timed out waiting for {what}")
-            await asyncio.sleep(0.01)
-
     task = asyncio.create_task(client.run())
     listener = None
     try:
         t = await connect_tcp("127.0.0.1", port)
         listener = LiveClient(t, want)
         await t.send(pkt.PacketType.CLIENT_CAPABILITIES, wire.pack())
-        await until(lambda: want in shown, "a frame equal to the oracle")
+        await until(lambda: want in shown, "the live client's frame equal to the oracle")
         await until(lambda: any(p > 0.05 for p in listener.audio_peaks), "the tone")
         # every launch precedes its frame's send: once the last frame is sent
         # (or has failed), the count is final
@@ -1441,6 +1481,317 @@ def phase13_live_client() -> dict[str, int]:
     return launches
 
 
+@dataclasses.dataclass(frozen=True)
+class DitheredCaps(TerminalCapabilities):
+    """``16color_dithered``: no terminal capabilities dispatch to it."""
+
+    def renderer_key(self) -> str:
+        return "16color_dithered"
+
+
+def caps_for_mode(mode: str) -> TerminalCapabilities:
+    if mode == "16color_dithered":
+        return DitheredCaps()
+    for color in ColorLevel:
+        for render in RenderMode:
+            caps = TerminalCapabilities(color, render)
+            if caps.renderer_key() == mode:
+                return caps
+    raise ValueError(mode)
+
+
+class FrameList:
+    """A frame source that plays a fixed list once."""
+
+    def __init__(self, frames: list[np.ndarray]):
+        self.frames = list(frames)
+
+    def read(self):
+        return self.frames.pop(0) if self.frames else None
+
+
+def y4m_frames(data: bytes) -> int:
+    """Frames of a C444 Y4M stream, checked against its header's size."""
+    header, _, body = data.partition(b"\n")
+    fields = {f[:1]: f[1:] for f in header.split()[1:]}
+    size = 6 + 3 * int(fields[b"W"]) * int(fields[b"H"])
+    n, rest = divmod(len(body), size)
+    if rest or not all(body[i * size:i * size + 6] == b"FRAME\n" for i in range(n)):
+        raise AssertionError(f"Y4M body of {len(body)} bytes is not whole frames of {size}")
+    return n
+
+
+def phase15_render_file(dev) -> tuple[dict[str, int], dict]:
+    say(f"phase 15: mirror --render-file, {RF_FRAMES} test-pattern frames at "
+        f"{TERM_W}x{TERM_H}, {len(cells.MODES)} modes x {len(RF_PALETTES)} palettes, the card "
+        "against the plain CPU version")
+    src = TestPatternSource()
+    frames = []
+    for k in range(RF_FRAMES):
+        src._t0 = time.monotonic() - k / 30  # read() at k / 30 s
+        frames.append(src.read())
+    out_dir = ROOT / "build" / "chip_smoke_render"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    card_path, cpu_path = out_dir / "card.y4m", out_dir / "cpu.y4m"
+    k1_name, k2_name = resize.RESIZE_KERNEL.name, cells.CELL_RECORDS_KERNEL.name
+    launches = {k1_name: 0, k2_name: 0}
+    for name in RF_PALETTES:
+        pal = palette.BUILTIN_PALETTES[name]
+        for mode in cells.MODES:
+            caps = caps_for_mode(mode)
+            reset_launches()
+            n = renderfile.render_to_file(FrameList(frames), str(card_path), caps, TERM_W,
+                                          TERM_H, pal, max_frames=RF_FRAMES, device=dev)
+            got = read_launches()
+            renderfile.render_to_file(FrameList(frames), str(cpu_path), caps, TERM_W, TERM_H,
+                                      pal, max_frames=RF_FRAMES, device=torch.device("cpu"))
+            # a half-block RGB frame's records are two K1 gathers (top and
+            # bottom pixel rows); every other mode's are one K2 launch
+            k1, k2 = got[k1_name], got[k2_name]
+            launches[k1_name] += k1
+            launches[k2_name] += k2
+            want = (2 * n, 0) if cells.mode_family(mode) == cells.FAM_HB_RGB else (0, n)
+            if n != RF_FRAMES or (k1, k2) != want or sum(got.values()) != k1 + k2:
+                raise AssertionError(f"render-file {mode}/{name}: {n} frames, launches {got}")
+            card, cpu = card_path.read_bytes(), cpu_path.read_bytes()
+            if card != cpu:
+                at = next(i for i, (a, b) in enumerate(zip(card, cpu)) if a != b) \
+                    if len(card) == len(cpu) else min(len(card), len(cpu))
+                raise AssertionError(f"render-file {mode}/{name}: the card's Y4M differs "
+                                     f"from the CPU's at byte {at}")
+            if y4m_frames(card) != n:
+                raise AssertionError(f"render-file {mode}/{name}: {y4m_frames(card)} frames")
+            say(f"  ok  {mode} / {name}: {n} frames, {len(card)} bytes of Y4M equal card "
+                f"and CPU; launches K1 {k1}, K2 {k2}")
+    card_path.unlink()
+    cpu_path.unlink()
+    times = {mode: render_file_times(dev, frames, mode, out_dir) for mode in RF_TIMED_MODES}
+    render_file_cli()
+    render_file_mp4(dev, frames, out_dir)
+    return launches, times
+
+
+def render_file_times(dev, frames: list[np.ndarray], mode: str, out_dir: Path) -> dict:
+    """One frame's time split on the card (standard palette): upload,
+    device (records + raster + YCbCr, CUDA events), fetch and host write
+    (host clock), and render_to_file's frames/s over the whole clip."""
+    pal = palette.DEFAULT_PALETTE
+    caps = caps_for_mode(mode)
+    renderer = AsciiRenderer(pal, device=dev)
+    host = np.ascontiguousarray(frames[0][None])
+    plan = plan_render(host.shape[2], host.shape[1], TERM_W, TERM_H, caps)
+    upload_ms = host_ms(lambda: (renderer.to_device(host), torch.cuda.synchronize()))
+    frame = renderer.to_device(host)
+
+    def device_part():
+        records = renderer.cells_for_plan(frame, plan)
+        return renderfile.rgb_to_ycbcr444(renderfile.records_to_pixels(records, mode, pal))
+
+    device_ms = cuda_ms(device_part, iters=30)
+    graph_device_ms = graph_ms(device_part)
+    ycbcr = device_part()
+    # least bytes: each sampled source pixel read once, the YCbCr frame written once
+    bound_ms = (plan.dst_h_px * plan.dst_w * 3 + ycbcr.numel()) / HBM_BYTES_PER_S * 1e3
+    fetch_ms = host_ms(lambda: ycbcr[0].cpu())
+    out = ycbcr[0].cpu().numpy()
+    writer = renderfile.Y4MWriter(str(out_dir / "timing.y4m"), out.shape[1], out.shape[0])
+    try:
+        write_ms = host_ms(lambda: writer.write(out))
+    finally:
+        writer.close()
+    (out_dir / "timing.y4m").unlink()
+    path = out_dir / "clip.y4m"
+    t0 = time.perf_counter()
+    n = renderfile.render_to_file(FrameList(frames), str(path), caps, TERM_W, TERM_H, pal,
+                                  max_frames=RF_FRAMES, device=dev)
+    wall = time.perf_counter() - t0
+    path.unlink()
+    fps = n / wall
+    share = device_ms / (1e3 / fps)
+    say(f"  time render-file {mode} ({out.shape[1]}x{out.shape[0]} px): upload "
+        f"{upload_ms:.4f} ms, device (records + raster + YCbCr) {device_ms:.4f} ms eager, "
+        f"{graph_device_ms:.4f} ms device only (CUDA graph; bound {bound_ms * 1e3:.2f} us, "
+        f"bytes), fetch {fetch_ms:.4f} ms, host write {write_ms:.4f} ms a frame; "
+        f"render_to_file {fps:.1f} frames/s ({1e3 / fps:.3f} ms a frame, device {share:.1%} "
+        f"of it) [{CARD}]")
+    return {"px": [out.shape[1], out.shape[0]], "upload_ms": upload_ms, "device_ms": device_ms,
+            "graph_device_ms": graph_device_ms, "bound_ms": bound_ms, "fetch_ms": fetch_ms,
+            "write_ms": write_ms, "frames_per_s": fps, "device_share": share}
+
+
+def render_file_cli() -> None:
+    """``apps.main mirror --test-pattern --render-file`` on the card in a
+    subprocess (ASCIICHAT_TORCH_DEVICE unset)."""
+    out = ROOT / "build" / "chip_smoke.y4m"
+    cmd = [sys.executable, "-m", "asciichat_tpu_torch.apps.main", "mirror", "--test-pattern",
+           "--render-file", str(out), "--max-frames", str(RF_FRAMES)]
+    env = dict(os.environ)
+    env.pop("ASCIICHAT_TORCH_DEVICE", None)
+    t0 = time.monotonic()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, timeout=300)
+    took = time.monotonic() - t0
+    if r.returncode != 0 or f"rendered {RF_FRAMES} frames".encode() not in r.stdout:
+        raise RuntimeError(f"mirror --render-file exited {r.returncode}: {r.stdout[-500:]!r}\n"
+                           f"{r.stderr.decode(errors='replace')[-3000:]}")
+    n = y4m_frames(out.read_bytes())
+    if n != RF_FRAMES:
+        raise AssertionError(f"mirror --render-file wrote {n} frames, not {RF_FRAMES}")
+    say(f"  ok  CLI {r.stdout.decode().strip()!r}: exit 0, {n} frames in the file "
+        f"({took:.1f} s with start-up)")
+
+
+def render_file_mp4(dev, frames: list[np.ndarray], out_dir: Path) -> None:
+    """An .mp4 through NativeRecorder (H.265 on the system libavcodec) where
+    the shim loads and an encoder opens; otherwise a line saying why not."""
+    path = out_dir / "clip.mp4"
+    gh, gw = renderfile.glyph_atlas()[1:]
+    try:
+        renderfile.NativeRecorder(str(path), TERM_W * gw, TERM_H * gh, 30).close()
+    except codecs.CodecUnavailable as e:
+        say(f"  .mp4 through NativeRecorder: not run ({e})")
+        return
+    n = renderfile.render_to_file(FrameList(frames), str(path), FG_TRUECOLOR, TERM_W, TERM_H,
+                                  palette.DEFAULT_PALETTE, max_frames=RF_FRAMES, device=dev)
+    size = path.stat().st_size
+    if n != RF_FRAMES or size == 0:
+        raise AssertionError(f".mp4: {n} frames, {size} bytes")
+    say(f"  ok  .mp4 through NativeRecorder: {n} frames, {size} bytes")
+
+
+# The mDNS multicast group inside one process, for the web phase's server:
+# each datagram reaches every open socket of the bus, the sender's too, and
+# none leaves the process, so the smoke sends nothing onto the machine's
+# network. The announcer and the /servers.json sweep run as they are; only
+# their socket is this one.
+MDNS_BUS = """
+import queue, socket, threading
+from asciichat_tpu_torch.net import mdns
+
+
+class _BusSocket:
+    def __init__(self, bus):
+        self.bus, self.inbox, self.timeout = bus, queue.Queue(), None
+
+    def settimeout(self, timeout):
+        self.timeout = timeout
+
+    def sendto(self, data, addr):
+        with self.bus.lock:
+            for s in self.bus.sockets:
+                s.inbox.put((bytes(data), ("127.0.0.1", mdns.MDNS_PORT)))
+
+    def recvfrom(self, n):
+        try:
+            return self.inbox.get(timeout=self.timeout)
+        except queue.Empty:
+            raise socket.timeout from None
+
+    def close(self):
+        with self.bus.lock:
+            self.bus.sockets.remove(self)
+
+
+class _Bus:
+    def __init__(self):
+        self.sockets, self.lock = [], threading.Lock()
+
+    def socket(self):
+        s = _BusSocket(self)
+        with self.lock:
+            self.sockets.append(s)
+        return s
+
+
+mdns._mdns_socket = _Bus().socket
+mdns._lan_address = lambda: "127.0.0.1"
+"""
+
+
+async def ws_client_session(port: int, picture: np.ndarray, want: bytes) -> dict:
+    """The port's client (``use_ws=True``) against the server's WebSocket
+    listener at ``port``, until it shows a frame equal to ``want``."""
+    wire = proto.WireCapabilities(caps=HB_TRUECOLOR, width=TERM_W, height=TERM_H,
+                                  capabilities_mask=0x1)  # no compression: no zstandard
+    client = AsciiChatClient("127.0.0.1", port, StillSource(picture), wire, reconnect=False,
+                             use_ws=True)
+    shown, dialed = [], []
+    client.display = DisplaySink(stream=io.BytesIO())
+    client.display.write_frame = lambda frame: shown.append(bytes(frame))
+    dial = client._dial
+
+    async def recorded_dial():
+        t = await dial()
+        dialed.append(type(t).__name__)
+        return t
+
+    client._dial = recorded_dial
+    task = asyncio.create_task(client.run())
+    try:
+        await until(lambda: want in shown or task.done(), "a frame equal to the oracle")
+        if task.done():
+            task.result()
+        client._on_key("q")
+        await asyncio.wait_for(task, LIVE_WAIT_S)
+    finally:
+        if not task.done():
+            task.cancel()
+    if dialed != ["WebSocketTransport"]:
+        raise AssertionError(f"the client dialed {dialed}")
+    return {"frames_received": client.frames_received, "matched": shown.count(want)}
+
+
+def http_get(port: int, route: str) -> tuple[str, bytes]:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=30) as r:
+        return r.headers["Content-Type"], r.read()
+
+
+def phase16_web() -> dict:
+    say("phase 16: web, python -m asciichat_tpu_torch.apps.main server --ws-port --mdns on the "
+        "card; the port's AsciiChatClient over WebSocket, the browser page over HTTP")
+    picture = np.random.default_rng(51).integers(0, 256, (UPLINK_H, UPLINK_W, 3), dtype=np.uint8)
+    comp = compositor.composite_reference(
+        picture[None], compositor.plan_composite([(UPLINK_W, UPLINK_H)], TERM_W, TERM_H))
+    want = oracle.ascii_convert_with_capabilities(comp, TERM_W, 2 * TERM_H, HB_TRUECOLOR)
+    ws_port = free_port()
+    web_dir = ROOT / "asciichat_tpu_torch" / "web"
+    with ServerProcess("chip_smoke_web_server.log", "--ws-port", str(ws_port), "--mdns",
+                       prelude=MDNS_BUS) as srv:
+        srv.wait_accepting(ws_port)  # the WebSocket listener opens after the TCP one
+        got = asyncio.run(ws_client_session(ws_port, picture, want))
+        srv.check()
+        say(f"  ok  AsciiChatClient(use_ws=True): {got['matched']} of {got['frames_received']} "
+            f"frames byte-identical to the oracle ({len(want)} bytes)")
+        for route, (ctype, name) in web.ASSETS.items():
+            got_type, body = http_get(ws_port, route)
+            if got_type != ctype or body != (web_dir / name).read_bytes():
+                raise AssertionError(f"GET {route}: {got_type}, {len(body)} bytes, not {name}")
+        say(f"  ok  GET of {len(web.ASSETS)} routes of web.ASSETS: the port's file bytes")
+        end = time.monotonic() + LIVE_WAIT_S
+        while True:  # the first request starts a 2 s sweep; later ones read its roster
+            got_type, body = http_get(ws_port, "/servers.json")
+            roster = json.loads(body)
+            if got_type != "application/json" or not isinstance(roster, list):
+                raise AssertionError(f"/servers.json: {got_type} {body[:200]!r}")
+            if roster or time.monotonic() > end:
+                break
+            time.sleep(0.2)
+        mine = {"name": "asciichat", "host": "127.0.0.1", "port": srv.port, "ws": str(ws_port)}
+        if roster != [mine]:
+            raise AssertionError(f"/servers.json: {roster}, expected [{mine}]")
+        say(f"  ok  /servers.json (the server's discover(timeout=2.0) over the in-process "
+            f"mDNS bus) found its own announcement: {roster}")
+        state = srv.state()
+        srv.check()
+    if not (str(state.get("device", "")).startswith("cuda") and state.get("render_launches", 0)
+            and state.get("device_failures") == 0):
+        raise AssertionError(f"inspector /state/server: device {state.get('device')}, render "
+                             f"launches {state.get('render_launches')}, device failures "
+                             f"{state.get('device_failures')}")
+    say(f"  ok  inspector: device {state['device']}, render_launches "
+        f"{state['render_launches']}, device_failures 0")
+    return {"frames_matched": got["matched"], "assets": len(web.ASSETS), "servers_json": roster}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1484,7 +1835,10 @@ def main() -> int:
     missing = [f"{name} on {path}" for path, name in need if not paths[path].get(name)]
     if missing:
         raise AssertionError(f"kernels not launched: {missing}")
-    report = {"card": CARD, "kernels": [], "rain": matrix}
+    paths["render_file"], render_file = phase15_render_file(dev)
+    web_check = phase16_web()
+    report = {"card": CARD, "kernels": [], "rain": matrix, "render_file": render_file,
+              "web": web_check}
     for k in KERNELS:
         entry = {"name": k.name, "route": "cuda", "source": k.source,
                  "replaces": k.replaces, "launches": paths[MAIN_PATH[k.name]][k.name],

@@ -173,15 +173,74 @@ def test_mirror_matrix_not_ported():
 
 
 @pytest.mark.parametrize("argv", [
-    ["discovery"], ["client", "127.0.0.1", "--ws"], ["client", "127.0.0.1", "--webrtc"],
-    ["client", "--browse"], ["discovery-service"], ["bench"],
-    ["mirror", "--test-pattern", "--render-file", "out.y4m"],
-    ["server", "--port", "0", "--ws-port", "0"], ["server", "--port", "0", "--mdns"],
+    ["discovery"], ["client", "127.0.0.1", "--webrtc"], ["discovery-service"], ["bench"],
     ["completions", "bash"],
 ])
 def test_unported_modes_exit_nonzero(argv, capsys):
     assert tmain.main(argv) == tmain.NOT_PORTED
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra, fps", [([], 30), (["--tone-hz", "440"], 30),
+                                        (["--fps", "0.4"], 1)],
+                         ids=["plain", "tone", "fractional-fps"])
+def test_mirror_cli_render_file(extra, fps, monkeypatch, capsys, tmp_path):
+    """``mirror --render-file`` on the plain versions writes --max-frames
+    frames to a Y4M file whose rate is a whole number >= 1."""
+    monkeypatch.setenv("ASCIICHAT_TORCH_DEVICE", "cpu")
+    out = tmp_path / "clip.y4m"
+    argv = ["mirror", "--test-pattern", "--render-file", str(out), "--max-frames", "4",
+            "--width", "20", "--height", "6", *extra]
+    assert tmain.main(argv) == 0
+    assert capsys.readouterr().out == f"rendered 4 frames to {out}\n"
+    data = out.read_bytes()
+    assert data.count(b"FRAME\n") == 4
+    assert f" F{fps}:1 ".encode() in data.split(b"\n", 1)[0]
+
+
+@pytest.mark.parametrize("flags, want", [(["--ws-port", "8123"], (8123, False)),
+                                         (["--mdns"], (None, True))],
+                         ids=["ws-port", "mdns"])
+def test_server_cli_passes_ws_port_and_mdns(flags, want, monkeypatch):
+    """``server --ws-port`` and ``--mdns`` reach the port's server."""
+    from asciichat_tpu_torch.apps import server
+
+    monkeypatch.setenv("ASCIICHAT_TORCH_DEVICE", "cpu")
+    seen = []
+
+    async def run(self):
+        seen.append((self.ws_port, self.mdns))
+
+    monkeypatch.setattr(server.AsciiChatServer, "run", run)
+    assert tmain.main(["server", "--port", "0", *flags]) == 0
+    assert seen == [want]
+
+
+def test_client_cli_ws_dials_websocket(monkeypatch):
+    from asciichat_tpu_torch.apps import client
+
+    seen = []
+
+    async def run(self, max_frames=None):
+        seen.append(self.use_ws)
+
+    monkeypatch.setattr(client.AsciiChatClient, "run", run)
+    assert tmain.main(["client", "127.0.0.1", "--ws", "--no-media"]) == 0
+    assert seen == [True]
+
+
+@pytest.mark.parametrize("announced", [True, False], ids=["found", "nothing"])
+def test_client_cli_browse(announced, monkeypatch, capsys):
+    """``client --browse`` lists what mDNS finds, and exits 1 when nothing
+    is announced."""
+    from asciichat_tpu_torch.net import mdns
+
+    svc = mdns.DiscoveredService("asciichat", "192.0.2.4", 27224, {"ver": "1", "ws": "8080"})
+    monkeypatch.setattr(mdns, "discover", lambda timeout: [svc] if announced else [])
+    assert tmain.main(["client", "--browse"]) == (0 if announced else 1)
+    out = capsys.readouterr().out
+    assert out == ("asciichat  192.0.2.4:27224  {'ver': '1', 'ws': '8080'}\n" if announced
+                   else "no ascii-chat servers announced on this LAN\n")
 
 
 def test_mirror_cli_snapshot_without_jax():

@@ -1,11 +1,13 @@
 """The port stands alone: no module of asciichat_tpu_torch, nor
 chip_smoke.py, imports the JAX package ``asciichat_tpu`` (eagerly or
-lazily), every one of them imports with ``asciichat_tpu``, ``jax`` and
-``jaxlib`` unimportable, and the port's server, started in a process where
+lazily), PIL only inside the image decoders, every one of them imports with
+``asciichat_tpu``, ``jax``,
+``jaxlib`` and ``PIL`` unimportable, ``mirror --render-file`` writes its
+frames so, and the port's server, started in a process where
 ``asciichat_tpu`` cannot be imported, serves a plaintext and an encrypted
 client frames equal to the oracle, and so it does to the port's
-command-line client (with its audio capture chain), itself run with
-``asciichat_tpu`` blocked. The raw clients and the oracle here are the JAX
+command-line client (with its audio capture chain) over TCP and WebSocket,
+itself run with ``asciichat_tpu`` blocked. The raw clients and the oracle here are the JAX
 package's: the tests are not the port."""
 
 import ast
@@ -32,19 +34,25 @@ from conftest import synthetic_frame
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "asciichat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 BLOCK = ("import sys\n"
-         "for name in ('asciichat_tpu', 'jax', 'jaxlib'):\n"
+         "for name in ('asciichat_tpu', 'jax', 'jaxlib', 'PIL'):\n"
          "    sys.modules[name] = None\n")
+# PIL: imported only inside the two image decoders of runtime/ (an image
+# --file, an MJPEG camera), never at a module's top and never on the
+# --render-file path, whose glyph atlas is a committed file
+LAZY_PIL = {"asciichat_tpu_torch/runtime/framesource.py": 2,
+            "asciichat_tpu_torch/runtime/webcam.py": 1}
 
 
 def _jax_package(name: str) -> bool:
     return name == "asciichat_tpu" or name.startswith("asciichat_tpu.")
 
 
-def _imports_of_the_jax_package(path: Path) -> list[str]:
-    """Every import of ``asciichat_tpu`` in ``path``, at any depth, and every
-    ``importlib.import_module`` / ``__import__`` of it by a literal name."""
+def _imports(path: Path, root: str, nodes) -> list[str]:
+    """Every import of the package ``root`` among ``nodes`` of ``path``,
+    and every ``importlib.import_module`` / ``__import__`` of it by a
+    literal name."""
     found = []
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    for node in nodes:
         names = []
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -57,14 +65,31 @@ def _imports_of_the_jax_package(path: Path) -> list[str]:
             if called in ("import_module", "__import__") and isinstance(arg, ast.Constant):
                 names = [str(arg.value)]
         found += [f"{path.relative_to(REPO)}:{node.lineno} {n}" for n in names
-                  if _jax_package(n)]
+                  if n.split(".")[0] == root]
     return found
+
+
+def _imports_of_the_jax_package(path: Path) -> list[str]:
+    """Every import of ``asciichat_tpu`` in ``path``, at any depth."""
+    return _imports(path, "asciichat_tpu", ast.walk(ast.parse(path.read_text(), str(path))))
 
 
 def test_no_source_of_the_port_imports_the_jax_package():
     assert len(PORT_FILES) > 40
     found = [hit for path in PORT_FILES for hit in _imports_of_the_jax_package(path)]
     assert not found, found
+
+
+def test_pil_is_imported_only_by_the_image_decoders():
+    tops, lazy = [], {}
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text(), str(path))
+        tops += _imports(path, "PIL", tree.body)
+        hits = _imports(path, "PIL", ast.walk(tree))
+        if hits:
+            lazy[str(path.relative_to(REPO))] = len(hits)
+    assert not tops, tops
+    assert lazy == LAZY_PIL
 
 
 IMPORT_ALL = BLOCK + """
@@ -77,7 +102,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 loaded = [m for m, mod in sys.modules.items() if mod is not None
-          and m.split(".")[0] in ("asciichat_tpu", "jax", "jaxlib")]
+          and m.split(".")[0] in ("asciichat_tpu", "jax", "jaxlib", "PIL")]
 assert not loaded, loaded
 print(len(names))
 """
@@ -109,6 +134,24 @@ def test_mirror_matrix_without_the_jax_package():
     assert len(lines) == 10 and all(len(line) == 40 for line in lines)
 
 
+def test_mirror_render_file_without_the_jax_package_or_pil(tmp_path):
+    """``mirror --render-file`` (the committed glyph atlas; no PIL) writes
+    its frames with ``asciichat_tpu`` and ``PIL`` blocked."""
+    out = tmp_path / "clip.y4m"
+    code = BLOCK + ("sys.modules['PIL'] = None\n"
+                    "from asciichat_tpu_torch.apps.main import main\n"
+                    f"code = main(['mirror', '--test-pattern', '--render-file', {str(out)!r}, "
+                    "'--max-frames', '3', '--width', '20', '--height', '6'])\n"
+                    "assert 'PIL' not in [m.split('.')[0] for m, mod in sys.modules.items() "
+                    "if mod is not None]\n"
+                    "sys.exit(code)\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, timeout=180)
+    assert run.returncode == 0, run.stderr.decode()[-3000:]
+    assert run.stdout.decode() == f"rendered 3 frames to {out}\n"
+    assert out.read_bytes().count(b"FRAME\n") == 3
+
+
 # -- the server with asciichat_tpu blocked ------------------------------------
 
 HB_TRUECOLOR = TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.HALF_BLOCK)
@@ -130,6 +173,12 @@ def _start_server(port: int, *extra: str) -> subprocess.Popen:
         f"'--log-level', 'WARNING', *{list(extra)!r}]))\n")
     proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=_env(),
                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    _wait_listening(proc, port)
+    return proc
+
+
+def _wait_listening(proc: subprocess.Popen, port: int) -> None:
+    """Wait until ``port`` accepts, failing if ``proc`` exits first."""
     end = time.monotonic() + WAIT_S
     while True:
         if proc.poll() is not None:
@@ -137,7 +186,7 @@ def _start_server(port: int, *extra: str) -> subprocess.Popen:
                                  f"{proc.stderr.read().decode(errors='replace')[-3000:]}")
         try:
             socket.create_connection(("127.0.0.1", port), timeout=1).close()
-            return proc
+            return
         except OSError:
             if time.monotonic() > end:
                 proc.kill()
@@ -196,12 +245,14 @@ def test_server_serves_without_the_jax_package(encrypted):
     assert "refused" not in err and "Traceback" not in err, err[-3000:]
 
 
-@pytest.mark.parametrize("encrypted", [False, True], ids=["plaintext", "encrypted"])
-def test_client_without_the_jax_package(encrypted, tmp_path):
+@pytest.mark.parametrize("transport", ["plaintext", "encrypted", "websocket"])
+def test_client_without_the_jax_package(transport, tmp_path):
     """``apps.main client`` (runtime/audiodev's tone through the capture
     chain, on the plain version) against the port's server, both with
-    ``asciichat_tpu`` blocked: exits 0 after --max-frames, its last frame
-    byte-identical to the oracle."""
+    ``asciichat_tpu`` blocked, over TCP in the clear and encrypted, and over
+    WebSocket (``server --ws-port``, ``client --ws``): exits 0 after
+    --max-frames, its last frame byte-identical to the oracle."""
+    encrypted = transport == "encrypted"
     if encrypted:
         pytest.importorskip("cryptography")
     frame = synthetic_frame(48, 64, seed=24)
@@ -214,8 +265,15 @@ def test_client_without_the_jax_package(encrypted, tmp_path):
     feed.write_bytes(frame.tobytes() * 600)
     crypto = ("--password", PASSWORD) if encrypted else ()
     port = _free_port()
-    proc = _start_server(port, *crypto)
-    argv = ["client", "127.0.0.1", "--port", str(port), "--stdin-size", "64x48",
+    if transport == "websocket":
+        ws_port = _free_port()
+        proc = _start_server(port, "--ws-port", str(ws_port))
+        _wait_listening(proc, ws_port)
+        dial = ("--port", str(ws_port), "--ws")
+    else:
+        proc = _start_server(port, *crypto)
+        dial = ("--port", str(port))
+    argv = ["client", "127.0.0.1", *dial, "--stdin-size", "64x48",
             "--no-compress", "--no-reconnect", "--max-frames", "20", "--tone-hz", "440",
             "--width", str(TERM_W), "--height", str(TERM_H), "--render-mode", "2",
             "--color-mode", "truecolor", "--log-level", "WARNING",
