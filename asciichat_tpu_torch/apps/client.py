@@ -11,12 +11,13 @@ The one piece of device work is the audio capture chain (echo canceller,
 highpass, noise gate: ``ops/audio.ClientAudioPipeline``, K5 on the card),
 built only when the client has an audio source, on
 ``runtime/device.default_device()`` unless a device is given: a client
-without audio needs no card. Transport is TCP, or WebSocket with ``use_ws``
-(``--ws``, ``net/websocket.py``); the WebRTC transport (``--webrtc``) is not
-ported yet. ``--browse`` lists the servers announced over mDNS
+without audio needs no card. Transport is TCP, WebSocket with ``use_ws``
+(``--ws``, ``net/websocket.py``) or a WebRTC DataChannel with ``use_webrtc``
+(``--webrtc``, ``net/datachannel.connect_webrtc`` against the server's
+``/webrtc/offer``). ``--browse`` lists the servers announced over mDNS
 (``net/mdns.py``). ``net/crypto.py`` and
 ``net/handshake.py`` (which need ``cryptography``) are imported only for an
-encrypted session.
+encrypted session, and ``net/crypto.py`` for a WebRTC one.
 """
 
 from __future__ import annotations
@@ -79,10 +80,12 @@ class AsciiChatClient:
         use_opus: bool = False,
         device=None,
         use_ws: bool = False,
+        use_webrtc: bool = False,
     ):
         self.host = host
         self.port = port
         self.use_ws = use_ws
+        self.use_webrtc = use_webrtc
         self.source = source
         self.wire_caps = wire_caps or proto.WireCapabilities()
         self.capture_fps = min(capture_fps, CAPTURE_FPS_CAP)
@@ -402,6 +405,13 @@ class AsciiChatClient:
                     self._stop.set()
 
     async def _dial(self):
+        if self.use_webrtc:
+            # WebRTC transport (src/client/webrtc.c role): SDP signaling
+            # against the server's /webrtc/offer + ICE/DTLS/SCTP; the
+            # server sees this client exactly like a browser
+            from asciichat_tpu_torch.net.datachannel import connect_webrtc
+
+            return await connect_webrtc(self.host, self.port)
         if self.use_ws:
             from asciichat_tpu_torch.net.websocket import connect_ws
 
@@ -522,7 +532,10 @@ class AsciiChatClient:
                 self._stop.set()
                 t = getattr(self, "_live_transport", None)
                 if t is not None:
-                    task = asyncio.get_running_loop().create_task(t.close())
+                    # ensure_future, not create_task: a DataChannel's close()
+                    # closes at once and returns a plain awaitable, which
+                    # create_task refuses (a TypeError in this callback)
+                    task = asyncio.ensure_future(t.close())
                     self._quit_close_task = task  # strong ref
 
             if self._loop is not None:
@@ -607,8 +620,8 @@ class AsciiChatClient:
 
 
 def main(args) -> int:
-    """``client`` mode over TCP or WebSocket, or ``--browse`` (``apps/main.
-    cmd_client`` turns away ``--webrtc``, which is not ported)."""
+    """``client`` mode over TCP, WebSocket (``--ws``) or WebRTC
+    (``--webrtc``), or ``--browse``."""
     from asciichat_tpu_torch.render.types import RenderMode
     from asciichat_tpu_torch.runtime.framesource import open_source
 
@@ -678,7 +691,8 @@ def main(args) -> int:
                              audio_sink=audio_sink, want_h265=args.h265,
                              audio_gain=args.audio_gain, flip_x=args.flip_x,
                              flip_y=args.flip_y, show_fps=args.show_fps,
-                             use_opus=args.opus, use_ws=args.ws)
+                             use_opus=args.opus, use_ws=args.ws,
+                             use_webrtc=args.webrtc)
     try:
         asyncio.run(client.run(max_frames=args.max_frames))
     except KeyboardInterrupt:

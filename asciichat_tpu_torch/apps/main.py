@@ -1,17 +1,23 @@
 """Command line of the port: the reference CLI's parser, the port's mirror,
-server and client.
+server, client, discovery service, discovery session and session strings.
 
     python -m asciichat_tpu_torch.apps.main mirror --test-pattern --snapshot
     python -m asciichat_tpu_torch.apps.main server --port 27224
     python -m asciichat_tpu_torch.apps.main client 127.0.0.1 --port 27224 --test-pattern
+    python -m asciichat_tpu_torch.apps.main discovery-service --port 27225
+    python -m asciichat_tpu_torch.apps.main discovery --port 27230
+    python -m asciichat_tpu_torch.apps.main strings --count 3
 
 :func:`build_parser` is built from the port's options registry
 (``utils/options.py``) as ``asciichat_tpu/apps/main.py`` builds it, so flags,
 help and defaults are the reference CLI's. ``mirror`` (with
-``--render-file``), ``server`` (with ``--ws-port`` and ``--mdns``) and
-``client`` (over TCP or ``--ws``, and ``--browse``) are ported; every other
-mode (discovery, ...), the client's ``--webrtc`` and ``--config`` exit
-non-zero with "not yet ported". The device is
+``--render-file``), ``server`` (with ``--ws-port`` and ``--mdns``),
+``client`` (over TCP, ``--ws`` or ``--webrtc``, and ``--browse``),
+``discovery-service``, ``discovery`` and ``strings`` are ported; every other
+mode (bench, ...) and ``--config`` exit non-zero with "not yet ported".
+``client --webrtc``, ``discovery-service`` and ``discovery`` need the
+``cryptography`` package (X25519 and Ed25519 keys): without it they exit 1
+with one line that says so. The device is
 ``ASCIICHAT_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` for the plain PyTorch
 versions); a client uses it only for its audio capture chain.
 """
@@ -100,12 +106,61 @@ def cmd_server(args) -> int:
     return server.main(args)
 
 
+def _cryptography_missing(mode: str) -> bool:
+    """WebRTC keys its ICE agent with X25519 (net/crypto.py) and the
+    discovery modes sign every message with Ed25519 (net/identity.py):
+    without `cryptography` say so on one line rather than with a
+    traceback."""
+    try:
+        import cryptography  # noqa: F401
+    except ImportError as e:
+        print(f"error: {mode} needs the `cryptography` package, which cannot "
+              f"be imported ({e})", file=sys.stderr)
+        return True
+    return False
+
+
 def cmd_client(args) -> int:
-    if args.webrtc:
-        return _not_ported("client --webrtc (the WebRTC transport)")
+    if args.webrtc and _cryptography_missing("client --webrtc"):
+        return 1
     from asciichat_tpu_torch.apps import client
 
     return client.main(args)
+
+
+def cmd_acds(args) -> int:
+    if _cryptography_missing("discovery-service"):
+        return 1
+    from asciichat_tpu_torch.apps import acds
+
+    return acds.main(args)
+
+
+def cmd_discovery(args) -> int:
+    if _cryptography_missing("discovery"):
+        return 1
+    from asciichat_tpu_torch.apps import discovery
+
+    return discovery.main(args)
+
+
+def cmd_strings(args) -> int:
+    """Word-list helper (src/strings/main.c analog)."""
+    from asciichat_tpu_torch.net.discovery import (
+        ADJECTIVES, NOUNS, generate_session_string, validate_session_string,
+    )
+
+    if args.validate:
+        ok = validate_session_string(args.validate)
+        print("valid" if ok else "invalid")
+        return 0 if ok else 1
+    if args.list_words:
+        print("adjectives:", " ".join(ADJECTIVES))
+        print("nouns:", " ".join(NOUNS))
+        return 0
+    for _ in range(args.count):
+        print(generate_session_string())
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -140,9 +195,11 @@ def build_parser() -> argparse.ArgumentParser:
 
     d = sub.add_parser("discovery-service", help="ACDS rendezvous server")
     apply_to_parser(reg, d, Mode.ACDS, default_overrides={"port": 27225})
+    d.set_defaults(fn=cmd_acds)
 
     dc = sub.add_parser("discovery", help="P2P session via discovery service")
     apply_to_parser(reg, dc, Mode.DISCOVERY)
+    dc.set_defaults(fn=cmd_discovery)
 
     sub.add_parser("bench", help="run the throughput benchmark")
 
@@ -150,7 +207,7 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--count", type=int, default=1)
     st.add_argument("--validate", default=None)
     st.add_argument("--list-words", action="store_true")
-    st.set_defaults(log_level="WARNING")
+    st.set_defaults(fn=cmd_strings, log_level="WARNING")
 
     q = sub.add_parser(
         "query", help="attach to a RUNNING asciichat pid: /proc state + "

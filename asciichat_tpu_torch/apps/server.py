@@ -24,9 +24,12 @@ order and under the same names; only the device seam differs:
   installed; an auth option without it refuses to start;
 - it serves TCP, WebSocket with the browser client's page (``ws_port``,
   ``net/websocket.py``, ``apps/webclient.py``) and announces itself over mDNS
-  (``mdns``, ``net/mdns.py``); WebRTC signaling is not ported yet, so the
-  WebSocket listener answers no POST (the JAX server does the same wherever
-  ``net/dtls`` is unavailable).
+  (``mdns``, ``net/mdns.py``); the WebSocket listener answers WebRTC
+  signaling (``POST /webrtc/offer`` and ``/webrtc/candidate``,
+  ``apps/webclient.WebRtcGateway``) where the system libssl loads and
+  ``cryptography`` imports, and answers no POST elsewhere (as the JAX server
+  does wherever ``net/dtls`` is unavailable). A WebRTC DataChannel joins
+  through the same handler (``_handle_conn``) as TCP and WebSocket.
 The host modules it uses (``net/``, ``runtime/``, ``utils/``, ``render/``)
 are the port's own copies of the JAX package's.
 The device is ``ASCIICHAT_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` for
@@ -1017,14 +1020,26 @@ class AsciiChatServer:
         self.port = self._server.sockets[0].getsockname()[1]  # port 0: the bound one
         log.info("listening on %s:%d (tcp)", self.host, self.port)
         ws_server = None
+        webrtc_gw = None
         if self.ws_port:
-            from asciichat_tpu_torch.apps.webclient import make_http_handler
+            from asciichat_tpu_torch.apps.webclient import WebRtcGateway, make_http_handler
             from asciichat_tpu_torch.net.websocket import serve_ws
 
+            webrtc_gw = WebRtcGateway(self._handle_conn)
+            post = None
+            if webrtc_gw.available():
+                def post(path, body, _gw=webrtc_gw):
+                    route = path.split("?", 1)[0]
+                    if route == "/webrtc/offer":
+                        return _gw.on_offer(body)
+                    if route == "/webrtc/candidate":  # trickle ICE
+                        return _gw.on_candidate(path, body)
+                    return None
             ws_server = await serve_ws(self._handle_conn, self.host, self.ws_port,
-                                       pages=make_http_handler())
-            log.info("listening on %s:%d (websocket + browser client page)",
-                     self.host, self.ws_port)
+                                       pages=make_http_handler(), post=post)
+            log.info("listening on %s:%d (websocket + browser client page%s)",
+                     self.host, self.ws_port,
+                     " + webrtc signaling" if post else "")
         announcer = None
         if self.mdns:
             from asciichat_tpu_torch.net.mdns import MdnsAnnouncer
@@ -1057,6 +1072,8 @@ class AsciiChatServer:
                 status_task.cancel()
             if ws_server:
                 ws_server.close()
+            if webrtc_gw:
+                webrtc_gw.close()
             if announcer:
                 announcer.stop()
             if insp:

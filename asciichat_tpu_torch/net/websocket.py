@@ -419,12 +419,15 @@ async def connect_ws(host: str, port: int, path: str = "/",
     return t
 
 
-async def serve_ws(handler, host: str, port: int, pages=None) -> asyncio.AbstractServer:
+async def serve_ws(handler, host: str, port: int, pages=None,
+                   post=None) -> asyncio.AbstractServer:
     """Listen for WebSocket upgrades; `await handler(WebSocketTransport)`.
     Plain HTTP GETs are routed through `pages(path) -> (ctype, body)|None`
     when provided (the browser app's static assets + JSON endpoints), else
-    answered 400, as is every other request that is not an upgrade (the
-    JAX package's `post` and `index_html` routes have no caller here)."""
+    answered 400. POSTs route through `post(path, body) -> (ctype, body)|None`
+    (awaitable results awaited) — the WebRTC signaling endpoint (browser
+    offer -> SDP answer); without `post` a POST is answered 400. (The JAX
+    package's `index_html` route has no caller here.)"""
 
     async def on_conn(reader, writer):
         try:
@@ -446,6 +449,17 @@ async def serve_ws(handler, host: str, port: int, pages=None) -> asyncio.Abstrac
                 page = None
                 if status.startswith("GET") and pages is not None:
                     page = pages(status.split(" ")[1] if " " in status else "/")
+                elif status.startswith("POST") and post is not None:
+                    path = status.split(" ")[1] if " " in status else "/"
+                    clen = int(headers.get("content-length", "0"))
+                    # the 15 s header bound does not cover the BODY: a
+                    # slowloris POST declaring Content-Length and sending
+                    # nothing held the fd + task forever on the public port
+                    body = (await asyncio.wait_for(reader.readexactly(clen), 15.0)
+                            if 0 < clen <= 1 << 20 else b"")
+                    page = post(path, body)
+                    if asyncio.iscoroutine(page):
+                        page = await page
                 if page is not None:
                     ctype, body = page
                     writer.write(

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render path, audio mixer, live server and client
-once on one NVIDIA card and check them.
+"""Drive the PyTorch port's render path, audio mixer, live server and client,
+and its WebRTC and discovery modes, once on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -83,18 +83,36 @@ so the exit code is non-zero:
     opens (a line says whether it ran and why);
 16. web: ``apps.main server --ws-port P --mdns`` in a subprocess on the card,
     its mDNS socket an in-process bus (``MDNS_BUS``: nothing is sent onto
-    the machine's network); the port's ``AsciiChatClient(use_ws=True)`` in
-    this process gets frames byte-identical to the oracle; a GET of every
+    the machine's network) and ``cryptography`` blocked in it, as on a
+    machine without the package; the port's ``AsciiChatClient(use_ws=True)``
+    in this process gets frames byte-identical to the oracle; a GET of every
     route of ``web.ASSETS`` returns the port's file bytes, and
     ``/servers.json`` (the server's own ``discover(timeout=2.0)``) lists the
-    server's announcement; the inspector shows the card and no failed tick;
-17. the kernels, their launches on each path, their times against the
+    server's announcement; the server serves no WebRTC signaling: ``POST
+    /webrtc/offer`` and ``/webrtc/candidate`` get 400, the JAX server's
+    answer where its signaling is unavailable; the inspector shows the card
+    and no failed tick;
+17. WebRTC and discovery, where ``cryptography`` imports (else one line
+    says why they did not run): the port's ``AsciiChatClient(use_webrtc=
+    True)`` against ``apps.main server --ws-port`` in a subprocess (ICE,
+    DTLS over the system libssl, SCTP; signaling on ``POST
+    /webrtc/offer``), an 800x600 picture at 203x64 half-block truecolor:
+    frames byte-identical to the oracle, K3's launches from the inspector;
+    then ``apps.main discovery-service`` and a ``discovery`` host in
+    subprocesses, a viewer in this process that joins the session through
+    the service and gets the same oracle frames from the host's standby
+    server, and ``apps.main discovery --join --max-frames 20`` where
+    ``zstandard`` imports (its viewer asks for compressed frames); the
+    host writes its K3 and K4 launches when it is stopped (K3 > 0). No
+    STUN server is configured: nothing leaves the machine;
+18. the kernels, their launches on each path, their times against the
     plain versions and their bounds, as one JSON line. A kernel's
     ``launches`` is the count on its user-facing path: the mirror (phase 6)
     for K1 and K2, the live server (phase 11) for K3 and K4, the live client
     (phase 13) for K5;
     ``launches_by_path`` holds every path's own count (``render_file``:
-    phase 15's renders on the card); the line also carries phase 6b's
+    phase 15's renders on the card; ``webrtc_server`` and
+    ``discovery_host``: phase 17's, each a fresh process); the line also carries phase 6b's
     ``rain``, phase 15's ``render_file`` times and phase 16's ``web``. ``ms`` is the eager
     time (CUDA events around back-to-back wrapper calls), ``device_ms`` the
     device-only time (calls replayed from one CUDA graph); K3's entry adds
@@ -133,6 +151,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -208,7 +227,7 @@ RF_TIMED_MODES = ("truecolor_fg", "halfblock_truecolor", "256color")
 
 KERNELS = (resize.RESIZE_KERNEL, cells.CELL_RECORDS_KERNEL,
            server.RENDER_GROUP_KERNEL, audio.MIXER_KERNEL, audio.CAPTURE_KERNEL)
-# the path whose launches a kernel's `launches` reports (see phase 17)
+# the path whose launches a kernel's `launches` reports (see phase 18)
 MAIN_PATH = {"resize_nn": "mirror", "cell_records": "mirror",
              "render_group": "live_server", "mixer": "live_server",
              "capture_chain": "live_client"}
@@ -1087,44 +1106,41 @@ async def live_session(port: int, pictures: list[np.ndarray], wants: list[bytes]
             await c.t.close()
 
 
-class ServerProcess:
-    """``python -m asciichat_tpu_torch.apps.main server`` (with ``extra``
-    arguments, after ``prelude``'s code where one is given) in a subprocess
-    on the card (ASCIICHAT_TORCH_DEVICE unset), its log in ``build/``;
-    entered, it waits until the server accepts; left on an error, it prints
-    the log's tail; it always stops the server."""
+class AppProcess:
+    """``python -m asciichat_tpu_torch.apps.main ARGV`` (after ``prelude``'s
+    code where one is given) in a subprocess on the card
+    (ASCIICHAT_TORCH_DEVICE unset), its output in ``build/LOG_NAME``;
+    entered, it waits until the process accepts on ``port``; left on an
+    error, it prints the log's tail; it always stops the process."""
 
-    def __init__(self, log_name: str, *extra: str, prelude: str = ""):
-        self.port, self.inspect_port = free_port(), free_port()
+    def __init__(self, log_name: str, argv: list[str], port: int, prelude: str = ""):
+        self.port, self.argv, self.prelude = port, argv, prelude
         self.log_path = ROOT / "build" / log_name
-        self.extra, self.prelude = extra, prelude
         self.proc = None
 
-    def __enter__(self) -> "ServerProcess":
+    def __enter__(self) -> "AppProcess":
         self.log_path.parent.mkdir(parents=True, exist_ok=True)
         env = dict(os.environ)
-        env.pop("ASCIICHAT_TORCH_DEVICE", None)  # the server's default device: the card
-        argv = ["server", "--host", "127.0.0.1", "--port", str(self.port), "--inspect-port",
-                str(self.inspect_port), "--log-level", "WARNING", *self.extra]
-        if self.prelude:  # the code runs first in the server's process
+        env.pop("ASCIICHAT_TORCH_DEVICE", None)  # the default device: the card
+        if self.prelude:  # the code runs first in the process
             cmd = [sys.executable, "-c", self.prelude + "import sys\n"
                    "from asciichat_tpu_torch.apps.main import main\n"
-                   f"sys.exit(main({argv!r}))\n"]
+                   f"sys.exit(main({self.argv!r}))\n"]
         else:
-            cmd = [sys.executable, "-m", "asciichat_tpu_torch.apps.main", *argv]
+            cmd = [sys.executable, "-m", "asciichat_tpu_torch.apps.main", *self.argv]
         with open(self.log_path, "wb") as log:
             self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log, stderr=log)
+        self.started = time.monotonic()
         try:
-            t0 = time.monotonic()
             self.wait_accepting(self.port)
-            say(f"  server accepting after {time.monotonic() - t0:.1f} s")
+            say(f"  {self.argv[0]} accepting after {time.monotonic() - self.started:.1f} s")
         except BaseException:
             self.__exit__(*sys.exc_info())
             raise
         return self
 
     def wait_accepting(self, port: int) -> None:
-        """Wait until the server accepts on ``port``; fail if it exits."""
+        """Wait until the process accepts on ``port``; fail if it exits."""
         t0 = time.monotonic()
         while True:
             self.check()
@@ -1133,30 +1149,41 @@ class ServerProcess:
                 return
             except OSError:
                 if time.monotonic() - t0 > LIVE_WAIT_S:
-                    raise RuntimeError(f"server never accepted on port {port}") from None
+                    raise RuntimeError(f"{self.argv[0]} never accepted on port {port}") from None
                 time.sleep(0.1)
 
     def check(self) -> None:
         if self.proc.poll() is not None:
-            raise RuntimeError(f"server exited {self.proc.returncode}")
-
-    def state(self) -> dict:
-        """The inspector's /state/server."""
-        url = f"http://127.0.0.1:{self.inspect_port}/state/server"
-        with urllib.request.urlopen(url, timeout=30) as r:
-            return json.loads(r.read())
+            raise RuntimeError(f"{self.argv[0]} exited {self.proc.returncode}")
 
     def __exit__(self, exc_type, exc, tb) -> None:
         if exc_type is not None:
             self.proc.kill()
-            say(f"  server log:\n{self.log_path.read_text(errors='replace')[-4000:]}")
-        else:
+            say(f"  {self.argv[0]} log:\n{self.log_path.read_text(errors='replace')[-4000:]}")
+        elif self.proc.poll() is None:
             self.proc.terminate()
         try:
             self.proc.wait(timeout=30)
         except subprocess.TimeoutExpired:
             self.proc.kill()
             self.proc.wait(timeout=30)
+
+
+class ServerProcess(AppProcess):
+    """``apps.main server`` (with ``extra`` arguments) on a free port, with
+    its inspector on another."""
+
+    def __init__(self, log_name: str, *extra: str, prelude: str = ""):
+        port, self.inspect_port = free_port(), free_port()
+        super().__init__(log_name, ["server", "--host", "127.0.0.1", "--port", str(port),
+                                    "--inspect-port", str(self.inspect_port),
+                                    "--log-level", "WARNING", *extra], port, prelude)
+
+    def state(self) -> dict:
+        """The inspector's /state/server."""
+        url = f"http://127.0.0.1:{self.inspect_port}/state/server"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return json.loads(r.read())
 
 
 def phase11_live_server() -> dict[str, int]:
@@ -1707,42 +1734,62 @@ mdns._lan_address = lambda: "127.0.0.1"
 """
 
 
-async def ws_client_session(port: int, picture: np.ndarray, want: bytes) -> dict:
-    """The port's client (``use_ws=True``) against the server's WebSocket
-    listener at ``port``, until it shows a frame equal to ``want``."""
+async def client_session(port: int, picture: np.ndarray, want: bytes, transport: str,
+                         **dial) -> dict:
+    """The port's client (``use_ws=True`` or ``use_webrtc=True`` in
+    ``dial``) against the listener at ``port``, until it shows a frame equal
+    to ``want``; it must have dialed a ``transport``."""
     wire = proto.WireCapabilities(caps=HB_TRUECOLOR, width=TERM_W, height=TERM_H,
                                   capabilities_mask=0x1)  # no compression: no zstandard
     client = AsciiChatClient("127.0.0.1", port, StillSource(picture), wire, reconnect=False,
-                             use_ws=True)
+                             **dial)
     shown, dialed = [], []
     client.display = DisplaySink(stream=io.BytesIO())
     client.display.write_frame = lambda frame: shown.append(bytes(frame))
-    dial = client._dial
+    original_dial = client._dial
 
     async def recorded_dial():
-        t = await dial()
+        t = await original_dial()
         dialed.append(type(t).__name__)
         return t
 
     client._dial = recorded_dial
+    t0 = time.monotonic()
     task = asyncio.create_task(client.run())
     try:
         await until(lambda: want in shown or task.done(), "a frame equal to the oracle")
         if task.done():
             task.result()
+        first_match_s = time.monotonic() - t0
         client._on_key("q")
         await asyncio.wait_for(task, LIVE_WAIT_S)
     finally:
         if not task.done():
             task.cancel()
-    if dialed != ["WebSocketTransport"]:
-        raise AssertionError(f"the client dialed {dialed}")
-    return {"frames_received": client.frames_received, "matched": shown.count(want)}
+    if dialed != [transport]:
+        raise AssertionError(f"the client dialed {dialed}, not {transport}")
+    return {"frames_received": client.frames_received, "matched": shown.count(want),
+            "first_match_s": first_match_s}
 
 
 def http_get(port: int, route: str) -> tuple[str, bytes]:
     with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=30) as r:
         return r.headers["Content-Type"], r.read()
+
+
+def http_post_status(port: int, route: str, body: bytes) -> int:
+    request = urllib.request.Request(f"http://127.0.0.1:{port}{route}", data=body,
+                                     method="POST")
+    try:
+        with urllib.request.urlopen(request, timeout=30) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+# the web phase's server runs as on a machine without `cryptography`: it
+# must start, and serve no WebRTC signaling
+NO_CRYPTOGRAPHY = "import sys\nsys.modules['cryptography'] = None\n"
 
 
 def phase16_web() -> dict:
@@ -1755,9 +1802,10 @@ def phase16_web() -> dict:
     ws_port = free_port()
     web_dir = ROOT / "asciichat_tpu_torch" / "web"
     with ServerProcess("chip_smoke_web_server.log", "--ws-port", str(ws_port), "--mdns",
-                       prelude=MDNS_BUS) as srv:
+                       prelude=NO_CRYPTOGRAPHY + MDNS_BUS) as srv:
         srv.wait_accepting(ws_port)  # the WebSocket listener opens after the TCP one
-        got = asyncio.run(ws_client_session(ws_port, picture, want))
+        got = asyncio.run(client_session(ws_port, picture, want, "WebSocketTransport",
+                                         use_ws=True))
         srv.check()
         say(f"  ok  AsciiChatClient(use_ws=True): {got['matched']} of {got['frames_received']} "
             f"frames byte-identical to the oracle ({len(want)} bytes)")
@@ -1766,6 +1814,14 @@ def phase16_web() -> dict:
             if got_type != ctype or body != (web_dir / name).read_bytes():
                 raise AssertionError(f"GET {route}: {got_type}, {len(body)} bytes, not {name}")
         say(f"  ok  GET of {len(web.ASSETS)} routes of web.ASSETS: the port's file bytes")
+        # without `cryptography` there is no signaling: a POST is answered as
+        # the JAX server answers it without DTLS (net/websocket.serve_ws
+        # with no `post` route)
+        posts = {route: http_post_status(ws_port, route, b"v=0\r\n")
+                 for route in ("/webrtc/offer", "/webrtc/candidate?ufrag=x")}
+        if set(posts.values()) != {400}:
+            raise AssertionError(f"POST without signaling: {posts}, expected 400")
+        say(f"  ok  started without `cryptography`: no WebRTC signaling, POST answered {posts}")
         end = time.monotonic() + LIVE_WAIT_S
         while True:  # the first request starts a 2 s sweep; later ones read its roster
             got_type, body = http_get(ws_port, "/servers.json")
@@ -1789,7 +1845,181 @@ def phase16_web() -> dict:
                              f"{state.get('device_failures')}")
     say(f"  ok  inspector: device {state['device']}, render_launches "
         f"{state['render_launches']}, device_failures 0")
-    return {"frames_matched": got["matched"], "assets": len(web.ASSETS), "servers_json": roster}
+    return {"frames_matched": got["matched"], "assets": len(web.ASSETS), "servers_json": roster,
+            "post_without_signaling": posts}
+
+
+# the discovery host's kernel launches, written when it is asked to stop:
+# its standby server is not the one whose inspector a server process has
+LAUNCH_DUMP = """
+import json, os, signal
+
+
+def _dump_launches(*_):
+    from asciichat_tpu_torch.models.server import RENDER_GROUP_KERNEL
+    from asciichat_tpu_torch.ops.audio import MIXER_KERNEL
+
+    with open({path!r}, "w") as f:
+        json.dump({{k.name: k.launches for k in (RENDER_GROUP_KERNEL, MIXER_KERNEL)}}, f)
+    os._exit(0)
+
+
+signal.signal(signal.SIGTERM, _dump_launches)
+"""
+
+
+def webrtc_drive(picture: np.ndarray, want: bytes) -> dict[str, int]:
+    """The port's client with ``use_webrtc=True`` against ``apps.main
+    server --ws-port`` (signaling on ``POST /webrtc/offer``)."""
+    ws_port = free_port()
+    with ServerProcess("chip_smoke_webrtc_server.log", "--ws-port", str(ws_port)) as srv:
+        srv.wait_accepting(ws_port)
+        got = asyncio.run(client_session(ws_port, picture, want, "DataChannelTransport",
+                                         use_webrtc=True))
+        state = srv.state()
+        srv.check()
+    if not (str(state.get("device", "")).startswith("cuda") and state.get("render_launches", 0)
+            and state.get("device_failures") == 0):
+        raise AssertionError(f"inspector /state/server: device {state.get('device')}, render "
+                             f"launches {state.get('render_launches')}, device failures "
+                             f"{state.get('device_failures')}")
+    say(f"  ok  AsciiChatClient(use_webrtc=True) over a DataChannel: {got['matched']} of "
+        f"{got['frames_received']} frames byte-identical to the oracle, the first "
+        f"{got['first_match_s']:.2f} s after the dial began; inspector: device "
+        f"{state['device']}, render_launches {state['render_launches']}, device_failures 0")
+    # a fresh process: its counts ran from 0, and only the server launched
+    return {server.RENDER_GROUP_KERNEL.name: state["render_launches"],
+            audio.MIXER_KERNEL.name: state["mixer_launches"]}
+
+
+async def discovery_viewer(acds_port: int, string: str, picture: np.ndarray,
+                           want: bytes) -> dict:
+    """Join ``string`` through the discovery service and view the host as
+    the ``discovery`` viewer does, at the server tick's full width."""
+    from asciichat_tpu_torch.apps.discovery import DiscoverySession
+
+    sess = DiscoverySession("127.0.0.1", acds_port)
+    await asyncio.wait_for(sess.connect(), LIVE_WAIT_S)
+    try:
+        host, port = await asyncio.wait_for(
+            sess.join(string, my_address="127.0.0.1", my_port=free_port()), LIVE_WAIT_S)
+        wire = proto.WireCapabilities(caps=HB_TRUECOLOR, width=TERM_W, height=TERM_H,
+                                      capabilities_mask=0x1)
+        client = AsciiChatClient(host, port, StillSource(picture), wire, reconnect=False)
+        shown = []
+        client.display = DisplaySink(stream=io.BytesIO())
+        client.display.write_frame = lambda frame: shown.append(bytes(frame))
+        t0 = time.monotonic()
+        task = asyncio.create_task(client.run())
+        try:
+            await until(lambda: want in shown or task.done(), "a frame equal to the oracle")
+            if task.done():
+                task.result()
+            first_match_s = time.monotonic() - t0
+            client._on_key("q")
+            await asyncio.wait_for(task, LIVE_WAIT_S)
+        finally:
+            if not task.done():
+                task.cancel()
+        return {"host": f"{host}:{port}", "frames_received": client.frames_received,
+                "matched": shown.count(want), "first_match_s": first_match_s}
+    finally:
+        await sess.leave()
+
+
+def discovery_cli_joiner(acds_port: int, string: str, host_port: int) -> None:
+    """``apps.main discovery --join --max-frames`` on the card: exit 0 after
+    its frames from the host."""
+    out_path = ROOT / "build" / "chip_smoke_joiner.out"
+    env = dict(os.environ, COLORTERM="truecolor")
+    env.pop("ASCIICHAT_TORCH_DEVICE", None)
+    with open(out_path, "wb") as out:
+        joiner = subprocess.run(
+            [sys.executable, "-m", "asciichat_tpu_torch.apps.main", "discovery",
+             "--acds", "127.0.0.1", "--acds-port", str(acds_port), "--join", string,
+             "--port", str(free_port()), "--max-frames", str(CLI_FRAMES),
+             "--width", str(TERM_W), "--height", str(TERM_H), "--log-level", "WARNING"],
+            cwd=ROOT, env=env, stdout=out, stderr=subprocess.PIPE, timeout=2 * LIVE_WAIT_S)
+    body = out_path.read_bytes()
+    head = f"session: {string}\nhost: 127.0.0.1:{host_port}\n".encode()
+    if joiner.returncode != 0 or not body.startswith(head) or body.count(b"\x1b[") < 1000:
+        raise AssertionError(f"discovery --join exited {joiner.returncode}, {len(body)} "
+                             f"bytes out:\n{joiner.stderr.decode(errors='replace')[-3000:]}")
+    say(f"  ok  discovery --join --max-frames {CLI_FRAMES}: exit 0, {len(body)} bytes of "
+        "frames from the host")
+
+
+def discovery_drive(picture: np.ndarray, want: bytes) -> dict[str, int]:
+    """``apps.main discovery-service``, a ``discovery`` host (its standby
+    server on the card) and two joiners: the viewer above in this process,
+    then ``apps.main discovery --join --max-frames``."""
+    acds_port, host_port = free_port(), free_port()
+    counts_path = ROOT / "build" / "chip_smoke_discovery_launches.json"
+    counts_path.unlink(missing_ok=True)
+    acds_argv = ["discovery-service", "--host", "127.0.0.1", "--port", str(acds_port),
+                 "--log-level", "WARNING"]
+    host_argv = ["discovery", "--acds", "127.0.0.1", "--acds-port", str(acds_port),
+                 "--port", str(host_port), "--log-level", "WARNING"]
+    with AppProcess("chip_smoke_acds.log", acds_argv, acds_port), \
+            AppProcess("chip_smoke_discovery_host.log", host_argv, host_port,
+                       prelude=LAUNCH_DUMP.format(path=str(counts_path))) as host:
+        end = time.monotonic() + LIVE_WAIT_S
+        while not (lines := [line for line in host.log_path.read_text(errors="replace")
+                             .splitlines() if line.startswith("session: ")]):
+            host.check()
+            if time.monotonic() > end:
+                raise AssertionError("the discovery host printed no session: line")
+            time.sleep(0.1)
+        string = lines[0].split(": ", 1)[1]
+        say(f"  the host printed its session: line {time.monotonic() - host.started:.1f} s "
+            "after its start")
+        got = asyncio.run(discovery_viewer(acds_port, string, picture, want))
+        say(f"  ok  discovery viewer joined {string!r} (host {got['host']}): {got['matched']} "
+            f"of {got['frames_received']} frames byte-identical to the oracle, the first "
+            f"{got['first_match_s']:.2f} s after its dial began")
+        try:  # the command-line viewer asks for compressed frames
+            import zstandard  # noqa: F401
+        except ImportError as e:
+            say(f"  discovery --join not run: its viewer asks for zstd-compressed frames and "
+                f"the `zstandard` package cannot be imported here ({e}); "
+                "tests/test_torch_discovery.py runs it on the CPU")
+        else:
+            discovery_cli_joiner(acds_port, string, host_port)
+        host.check()
+        host.proc.terminate()  # the prelude writes the launches and exits
+        host.proc.wait(timeout=30)
+    launches = json.loads(counts_path.read_text())
+    if not launches.get(server.RENDER_GROUP_KERNEL.name):
+        raise AssertionError(f"the discovery host's standby server launched {launches}")
+    say(f"  ok  the host's standby server (on the card): launches {launches}")
+    return launches
+
+
+def phase17_webrtc_discovery() -> dict[str, dict[str, int]]:
+    say("phase 17: WebRTC (client --webrtc against server --ws-port) and discovery "
+        "(discovery-service, a discovery host, two joiners) on the card")
+    try:
+        import cryptography  # noqa: F401
+    except ImportError as e:
+        say(f"  not run: WebRTC and discovery need the `cryptography` package (X25519 and "
+            f"Ed25519), which cannot be imported here ({e}); tests/test_torch_webrtc.py, "
+            "test_torch_datachannel.py and test_torch_discovery.py run them on the CPU")
+        return {}
+    from asciichat_tpu_torch.net import dtls
+
+    picture = np.random.default_rng(61).integers(0, 256, (UPLINK_H, UPLINK_W, 3),
+                                                 dtype=np.uint8)
+    comp = compositor.composite_reference(
+        picture[None], compositor.plan_composite([(UPLINK_W, UPLINK_H)], TERM_W, TERM_H))
+    want = oracle.ascii_convert_with_capabilities(comp, TERM_W, 2 * TERM_H, HB_TRUECOLOR)
+    paths = {}
+    if dtls.available():
+        paths["webrtc_server"] = webrtc_drive(picture, want)
+    else:
+        say("  WebRTC not run: the system libssl (OpenSSL 3) does not load here, so the "
+            "server serves no signaling")
+    paths["discovery_host"] = discovery_drive(picture, want)
+    return paths
 
 
 def main() -> int:
@@ -1837,6 +2067,9 @@ def main() -> int:
         raise AssertionError(f"kernels not launched: {missing}")
     paths["render_file"], render_file = phase15_render_file(dev)
     web_check = phase16_web()
+    t17 = time.monotonic()
+    paths.update(phase17_webrtc_discovery())
+    say(f"  phase 17 took {time.monotonic() - t17:.1f} s")
     report = {"card": CARD, "kernels": [], "rain": matrix, "render_file": render_file,
               "web": web_check}
     for k in KERNELS:

@@ -172,13 +172,63 @@ def test_mirror_matrix_not_ported():
     assert out == oracle.ascii_convert_with_capabilities(seen[0], 40, 12, caps)
 
 
-@pytest.mark.parametrize("argv", [
-    ["discovery"], ["client", "127.0.0.1", "--webrtc"], ["discovery-service"], ["bench"],
-    ["completions", "bash"],
-])
+@pytest.mark.parametrize("argv", [["bench"], ["completions", "bash"]])
 def test_unported_modes_exit_nonzero(argv, capsys):
     assert tmain.main(argv) == tmain.NOT_PORTED
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mode", ["discovery", "client-webrtc", "discovery-service"])
+def test_modes_ported_since_run(mode, capsys, monkeypatch, tmp_path):
+    """The modes that ``test_unported_modes_exit_nonzero`` turned away run:
+    ``discovery-service`` greets a connection with its signed hello,
+    ``discovery`` creates a session and prints its string, and
+    ``client --webrtc`` (in process) prints frames from a ``server
+    --ws-port`` over a DataChannel and exits 0. The processes run with
+    ``asciichat_tpu`` blocked (tests/test_torch_discovery.py has the
+    whole session, with a joiner and host failover)."""
+    import asyncio
+
+    from asciichat_tpu.net import packet as jpkt
+    from asciichat_tpu.net.discovery import validate_session_string
+    from asciichat_tpu.net.transport import connect_tcp
+
+    from test_torch_discovery import LIMIT, _accepts, _free_port, _Proc, _service
+
+    monkeypatch.setenv("ASCIICHAT_TORCH_DEVICE", "cpu")
+    procs = []
+    try:
+        if mode == "client-webrtc":
+            ws_port = _free_port()
+            procs.append(_Proc(tmp_path, "server", "--host", "127.0.0.1", "--port",
+                               str(_free_port()), "--ws-port", str(ws_port),
+                               "--log-level", "WARNING"))
+            procs[0].wait_for(lambda: _accepts(ws_port), "the server's ws listener")
+            argv = ["client", "127.0.0.1", "--port", str(ws_port), "--webrtc",
+                    "--test-pattern", "--max-frames", "3", "--no-reconnect",
+                    "--width", "40", "--height", "10", "--log-level", "WARNING"]
+            assert tmain.main(argv) == 0
+            assert capsys.readouterr().out.count("\x1b[") > 100
+            return
+        acds, acds_port = _service(tmp_path)
+        procs.append(acds)
+        if mode == "discovery-service":
+            async def hello():
+                t = await connect_tcp("127.0.0.1", acds_port)
+                try:
+                    return (await asyncio.wait_for(t.recv(), LIMIT))[0]
+                finally:
+                    await t.close()
+
+            assert asyncio.run(hello()) == jpkt.PacketType.ACIP_ACDS_HELLO
+            return
+        host = _Proc(tmp_path, "discovery", "--acds", "127.0.0.1", "--acds-port",
+                     str(acds_port), "--port", str(_free_port()), "--log-level", "WARNING")
+        procs.append(host)
+        assert validate_session_string(host.session())
+    finally:
+        for proc in procs:
+            proc.stop()
 
 
 @pytest.mark.parametrize("extra, fps", [([], 30), (["--tone-hz", "440"], 30),

@@ -7,7 +7,10 @@ frames so, and the port's server, started in a process where
 ``asciichat_tpu`` cannot be imported, serves a plaintext and an encrypted
 client frames equal to the oracle, and so it does to the port's
 command-line client (with its audio capture chain) over TCP and WebSocket,
-itself run with ``asciichat_tpu`` blocked. The raw clients and the oracle here are the JAX
+itself run with ``asciichat_tpu`` blocked. With ``cryptography`` blocked
+too, ``server --ws-port`` starts, serves the page and a WebSocket client and
+answers ``POST /webrtc/offer`` as the JAX server does without signaling,
+and ``client --webrtc`` exits 1 with a one-line message. The raw clients and the oracle here are the JAX
 package's: the tests are not the port."""
 
 import ast
@@ -98,6 +101,11 @@ import asciichat_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(asciichat_tpu_torch.__path__,
                                                "asciichat_tpu_torch.")]
 assert "asciichat_tpu_torch.ops.rain" in names, names
+slice_modules = {"asciichat_tpu_torch." + m for m in (
+    "net.stun", "net.sdp", "net.sctp", "net.dtls", "net.webrtc", "net.datachannel",
+    "net.rate_limit", "net.discovery", "net.consensus", "net.upnp", "apps.acds",
+    "apps.discovery")}
+assert slice_modules <= set(names), slice_modules - set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -166,8 +174,8 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _start_server(port: int, *extra: str) -> subprocess.Popen:
-    code = BLOCK + (
+def _start_server(port: int, *extra: str, block: str = BLOCK) -> subprocess.Popen:
+    code = block + (
         "from asciichat_tpu_torch.apps.main import main\n"
         f"sys.exit(main(['server', '--host', '127.0.0.1', '--port', '{port}', "
         f"'--log-level', 'WARNING', *{list(extra)!r}]))\n")
@@ -297,3 +305,85 @@ def test_client_without_the_jax_package(transport, tmp_path):
     assert out.returncode == 0, err[-3000:]
     assert out.stdout.endswith(want + b"\n"), err[-2000:]
     assert "Traceback" not in err, err[-3000:]
+
+
+# -- without cryptography -------------------------------------------------------
+
+NO_CRYPTO = BLOCK + "sys.modules['cryptography'] = None\n"
+
+
+async def _http(port: int, request: bytes) -> tuple[bytes, bytes]:
+    """One HTTP request: the status line and the body."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(request)
+    await writer.drain()
+    data = await asyncio.wait_for(reader.read(), WAIT_S)
+    writer.close()
+    head, _, body = data.partition(b"\r\n\r\n")
+    return head.split(b"\r\n", 1)[0], body
+
+
+def test_server_with_ws_port_starts_without_cryptography():
+    """``server --ws-port`` with ``cryptography`` (and ``asciichat_tpu``)
+    blocked starts, serves the page and a WebSocket client frames, and
+    serves no WebRTC signaling: ``POST /webrtc/offer`` gets the answer the
+    JAX server gives where its signaling is unavailable (400 Bad Request,
+    from ``net/websocket.serve_ws`` without a ``post`` route)."""
+    from asciichat_tpu.net.websocket import connect_ws
+
+    port, ws_port = _free_port(), _free_port()
+    proc = _start_server(port, "--ws-port", str(ws_port), block=NO_CRYPTO)
+    frame = synthetic_frame(48, 64, seed=25)
+    plan = compositor.plan_composite([(64, 48)], TERM_W, TERM_H)
+    want = oracle.ascii_convert_with_capabilities(
+        compositor.composite_reference(frame[None], plan), TERM_W, 2 * TERM_H, HB_TRUECOLOR)
+
+    async def drive():
+        _wait_listening(proc, ws_port)
+        status, page = await _http(ws_port, b"GET / HTTP/1.1\r\nHost: x\r\n\r\n")
+        assert status == b"HTTP/1.1 200 OK" and b"<html" in page.lower()
+        for path in ("/webrtc/offer", "/webrtc/candidate?ufrag=x"):
+            status, _ = await _http(ws_port, f"POST {path} HTTP/1.1\r\nHost: x\r\n"
+                                             "Content-Length: 4\r\n\r\nv=0\n".encode())
+            assert status == b"HTTP/1.1 400 Bad Request", path
+        t = await connect_ws("127.0.0.1", ws_port)
+        try:
+            wire = proto.WireCapabilities(caps=HB_TRUECOLOR, width=TERM_W, height=TERM_H,
+                                          capabilities_mask=0x1)
+            await t.send(pkt.PacketType.CLIENT_CAPABILITIES, wire.pack())
+            await t.send(pkt.PacketType.IMAGE_FRAME,
+                         pkt.pack_image_frame(frame.tobytes(), frame.shape[1], frame.shape[0]))
+            while True:
+                ptype, payload = await asyncio.wait_for(t.recv(), WAIT_S)
+                if (ptype == pkt.PacketType.ASCII_FRAME
+                        and pkt.unpack_ascii_frame(payload)[0] == want):
+                    return
+        finally:
+            await t.close()
+
+    try:
+        asyncio.run(asyncio.wait_for(drive(), 2 * WAIT_S))
+        assert proc.poll() is None, "the server exited"
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        err = proc.stderr.read().decode(errors="replace")
+        proc.stderr.close()
+    assert "Traceback" not in err, err[-3000:]
+
+
+def test_client_webrtc_without_cryptography_says_so():
+    """``client --webrtc`` with ``cryptography`` blocked exits 1 with one
+    line on stderr that names the package, and no traceback."""
+    code = NO_CRYPTO + ("from asciichat_tpu_torch.apps.main import main\n"
+                        "sys.exit(main(['client', '127.0.0.1', '--port', '1', '--webrtc', "
+                        "'--test-pattern', '--log-level', 'WARNING']))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=WAIT_S)
+    assert out.returncode == 1, out.stderr[-3000:]
+    assert out.stderr.count("\n") == 1 and "`cryptography`" in out.stderr, out.stderr
+    assert out.stdout == ""

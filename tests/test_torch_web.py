@@ -87,7 +87,7 @@ def test_websocket_echo_roundtrip():
 
 @pytest.mark.parametrize("request_head", [
     b"GET / HTTP/1.1\r\nHost: x\r\n\r\n",
-    # no WebRTC signaling yet: the browser's offer is refused
+    # serve_ws without a `post` route (no WebRTC signaling) refuses the offer
     b"POST /webrtc/offer HTTP/1.1\r\nHost: x\r\nContent-Length: 2\r\n\r\nv=",
 ], ids=["get", "post"])
 def test_websocket_rejects_non_upgrade(request_head):
