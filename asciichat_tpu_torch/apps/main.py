@@ -1,30 +1,39 @@
-"""Command line of the port: the reference CLI's parser, the port's mirror,
-server, client, discovery service, discovery session and session strings.
+"""Command line of the port: the reference CLI's parser and every mode of it
+but ``bench``.
 
     python -m asciichat_tpu_torch.apps.main mirror --test-pattern --snapshot
+    python -m asciichat_tpu_torch.apps.main mirror --config c.toml --preset tiny --test-pattern
     python -m asciichat_tpu_torch.apps.main server --port 27224
     python -m asciichat_tpu_torch.apps.main client 127.0.0.1 --port 27224 --test-pattern
     python -m asciichat_tpu_torch.apps.main discovery-service --port 27225
     python -m asciichat_tpu_torch.apps.main discovery --port 27230
     python -m asciichat_tpu_torch.apps.main strings --count 3
+    python -m asciichat_tpu_torch.apps.main query PID
+    python -m asciichat_tpu_torch.apps.main completions bash
+    python -m asciichat_tpu_torch.apps.main manpage
 
 :func:`build_parser` is built from the port's options registry
 (``utils/options.py``) as ``asciichat_tpu/apps/main.py`` builds it, so flags,
-help and defaults are the reference CLI's. ``mirror`` (with
-``--render-file``), ``server`` (with ``--ws-port`` and ``--mdns``),
-``client`` (over TCP, ``--ws`` or ``--webrtc``, and ``--browse``),
-``discovery-service``, ``discovery`` and ``strings`` are ported; every other
-mode (bench, ...) and ``--config`` exit non-zero with "not yet ported".
-``client --webrtc``, ``discovery-service`` and ``discovery`` need the
-``cryptography`` package (X25519 and Ed25519 keys): without it they exit 1
-with one line that says so. The device is
-``ASCIICHAT_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` for the plain PyTorch
-versions); a client uses it only for its audio capture chain.
+help and defaults are the reference CLI's. Around the mode, :func:`main`
+does what the JAX package's ``main()`` does: a ``--config`` TOML file (and its
+``--preset``) fills the options the user did not type (:func:`apply_config`);
+SIGUSR1 dumps every thread's stack into the per-pid file that ``query``
+reads (``utils/dumps.py``), SIGUSR2 prints a gc report, and an unhandled
+exception writes a panic report (:func:`install_handlers`). ``bench`` exits
+non-zero with "not yet ported": the repository's ``bench.py`` drives the
+JAX package. ``client --webrtc``, ``discovery-service`` and ``discovery``
+need the ``cryptography`` package (X25519 and Ed25519 keys): without it they
+exit 1 with one line that says so. The device is ``ASCIICHAT_TORCH_DEVICE``
+(``cuda`` by default, ``cpu`` for the plain PyTorch versions); a client uses
+it only for its audio capture chain. ``ASCIICHAT_FORCE_MESH`` and
+``ASCIICHAT_MESH_SPACE`` shard the server's render (``parallel/mesh.py``)
+and never change the device.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from asciichat_tpu_torch.render.palette import BUILTIN_PALETTES
@@ -163,6 +172,27 @@ def cmd_strings(args) -> int:
     return 0
 
 
+def cmd_query(args) -> int:
+    """Attach-to-live-PID inspector (ascii-query-server analog)."""
+    from asciichat_tpu_torch.apps import query
+
+    return query.main(args)
+
+
+def cmd_completions(args) -> int:
+    from asciichat_tpu_torch.utils.options import generate_completions
+
+    print(generate_completions(default_registry(), args.shell))
+    return 0
+
+
+def cmd_manpage(args) -> int:
+    from asciichat_tpu_torch.utils.options import generate_manpage
+
+    print(generate_manpage(default_registry()))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The reference CLI's parser (``asciichat_tpu/apps/main.py``), generated
     from the options registry: the same modes, flags, help and defaults.
@@ -218,16 +248,98 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--force", action="store_true",
                    help="signal SIGUSR1 even if the pid doesn't look like "
                         "an asciichat process")
-    q.set_defaults(log_level="WARNING")
+    q.set_defaults(fn=cmd_query, log_level="WARNING")
 
     comp = sub.add_parser("completions", help="generate shell completions")
     comp.add_argument("shell", choices=["bash", "zsh", "fish", "pwsh"])
-    comp.set_defaults(log_level="WARNING")
+    comp.set_defaults(fn=cmd_completions, log_level="WARNING")
 
     man = sub.add_parser("manpage", help="generate the troff man page")
-    man.set_defaults(log_level="WARNING")
+    man.set_defaults(fn=cmd_manpage, log_level="WARNING")
 
     return ap
+
+
+def apply_config(args: argparse.Namespace, argv: list[str]) -> None:
+    """Layer the ``--config`` TOML file (and its ``--preset``) under the
+    command line ``argv`` that gave ``args`` (lib/options/config/config.c
+    semantics, as ``asciichat_tpu/apps/main.py`` layers it): a key the file
+    sets fills its option unless the user typed that option; a width or
+    height of 0 in the file stays auto. Only keys the file set are applied:
+    the snapshot's registry defaults would override the CLI's positionals
+    (the client's address) and per-mode defaults (the ACDS port). Values
+    arrive converted through each option's cli_type, the CLI's own codec."""
+    from asciichat_tpu_torch.utils.options import OptionsStore
+
+    store = OptionsStore(default_registry())
+    snap = store.load_toml(args.config, preset=getattr(args, "preset", None))
+    # an option loses to the CLI only when the user actually typed it:
+    # argparse defaults cannot tell "unset" for non-None defaults
+    typed = {tok[2:].split("=", 1)[0] for tok in argv if tok.startswith("--")}
+    vals = snap.as_dict()
+    for key in store.last_toml_keys:
+        attr = key.replace("-", "_")
+        if not hasattr(args, attr) or key in typed or attr in typed:
+            continue
+        value = vals[key]
+        if attr in ("width", "height") and value == 0:
+            continue  # registry 0 means auto-detect
+        setattr(args, attr, value)
+
+
+def _dump_memory(*_) -> None:
+    import gc
+
+    print(f"--- gc: counts={gc.get_count()} objects={len(gc.get_objects())} ---",
+          file=sys.stderr)
+
+
+def _panic_hook(exc_type, exc, tb) -> None:
+    """Panic reporter (src/tooling/panic analog): an unhandled exception
+    writes a report with its traceback and every thread's stack before the
+    process dies."""
+    import tempfile
+    import threading
+    import traceback
+
+    if issubclass(exc_type, (KeyboardInterrupt, BrokenPipeError)):
+        sys.__excepthook__(exc_type, exc, tb)
+        return
+    try:
+        path = os.path.join(tempfile.gettempdir(), f"asciichat-panic-{os.getpid()}.txt")
+        with open(path, "w") as f:
+            f.write("asciichat-tpu panic report\n\n")
+            traceback.print_exception(exc_type, exc, tb, file=f)
+            f.write("\n--- threads ---\n")
+            frames = sys._current_frames()
+            for t in threading.enumerate():
+                f.write(f"\n{t.name}:\n")
+                fr = frames.get(t.ident)
+                if fr:
+                    traceback.print_stack(fr, file=f)
+        print(f"panic report written to {path}", file=sys.stderr)
+    except Exception:
+        pass
+    sys.__excepthook__(exc_type, exc, tb)
+
+
+def install_handlers() -> None:
+    """The reference's sync-state and leak-report signals
+    (src/main.c:323-338) and its panic reporter: SIGUSR1 dumps every
+    thread's stack through faulthandler into the per-pid file of
+    ``utils/dumps.py`` (written at C signal level without the GIL, so
+    ``query`` reads the stacks of a deadlocked process), SIGUSR2 prints a gc
+    report, and ``sys.excepthook`` writes a panic report."""
+    import signal
+
+    from asciichat_tpu_torch.utils.dumps import install_dump_handlers
+
+    install_dump_handlers()
+    try:
+        signal.signal(signal.SIGUSR2, _dump_memory)
+    except (ValueError, OSError, AttributeError):
+        pass
+    sys.excepthook = _panic_hook
 
 
 def main(argv=None) -> int:
@@ -236,7 +348,8 @@ def main(argv=None) -> int:
     if fn is None:
         return _not_ported(f"mode {args.mode!r}")
     if getattr(args, "config", None):
-        return _not_ported("--config")
+        apply_config(args, argv if argv is not None else sys.argv[1:])
+    install_handlers()
     logsys.configure(
         level=getattr(args, "log_level", "INFO"),
         log_file=getattr(args, "log_file", None),

@@ -13,6 +13,17 @@ order and under the same names; only the device seam differs:
 - the video tick renders every geometry group with one
   ``models/server.render_groups`` call (one K3 launch on a CUDA device) into
   the server's ``RecordArena`` and fetches them all with one copy;
+- multi-device serving (``parallel/mesh.serving_mesh``): with
+  ``ASCIICHAT_FORCE_MESH=N`` the render is sharded N ways on the server's
+  own device, and with more than one visible card over all of them
+  (``ASCIICHAT_MESH_SPACE=K`` shards cell rows too). The stack is copied
+  from the server's device to each other device of the mesh once per tick
+  (where the JAX package all-gathers it), each shard is one K3 launch, and
+  the records come back on the host in the unsharded layout
+  (``models/server.MeshArena``). The inspector's ``mesh`` is the grid's
+  shape and ``mesh_collectives`` the last tick's device-to-device stack
+  copies (0 when every shard shares one card). A mesh that was asked for
+  and cannot be built stops the server's start;
 - the audio tick mixes with the port's ``mixer_process`` (K4 on a CUDA
   device) on a CUDA stream of its own;
 - a video tick whose device work fails is logged at ERROR, counted
@@ -33,7 +44,7 @@ order and under the same names; only the device seam differs:
 The host modules it uses (``net/``, ``runtime/``, ``utils/``, ``render/``)
 are the port's own copies of the JAX package's.
 The device is ``ASCIICHAT_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` for
-the plain versions). There is no multi-device mesh (ROADMAP.md).
+the plain versions); a forced mesh never changes it.
 
 Asyncio re-expression of src/server/: where the reference runs 5 thread
 types (per-client receive/send/dispatch + 60 fps video render + 100 fps audio
@@ -59,13 +70,14 @@ import time
 import numpy as np
 import torch
 
-from asciichat_tpu_torch.models.server import (RENDER_GROUP_KERNEL, RecordArena, RenderGroup,
-                                               render_groups)
+from asciichat_tpu_torch.models.server import (RENDER_GROUP_KERNEL, MeshArena, RecordArena,
+                                               RenderGroup, render_groups)
 from asciichat_tpu_torch.net import packet as pkt
 from asciichat_tpu_torch.net import protocol as proto
 from asciichat_tpu_torch.net.transport import Transport, serve_tcp
 from asciichat_tpu_torch.ops import audio as audio_ops
 from asciichat_tpu_torch.ops import filters
+from asciichat_tpu_torch.parallel import mesh as meshlib
 from asciichat_tpu_torch.render import palette as pal
 from asciichat_tpu_torch.runtime.device import default_device
 from asciichat_tpu_torch.runtime.double_buffer import LatestFrame
@@ -204,7 +216,18 @@ class AsciiChatServer:
         self._stack_seqs: dict[int, int] = {}  # client id -> copied frame seq
         self._stack_hwm = (0, 0, 0)  # (n_src, hmax, wmax) shape watermark
         self._dev_stack = None  # device-resident stack
-        self._arena = RecordArena(self.device)  # every group's records, each tick
+        # Multi-device serving (parallel/mesh.serving_mesh): a forced or
+        # multi-card mesh shards every group's render over its grid, the
+        # reference's 2-threads-per-client fan-out (src/server/render.c:16-38)
+        # as shards. No `except`: a mesh that was asked for and cannot be
+        # built stops the start rather than serving on one device.
+        self.mesh = meshlib.serving_mesh(self.device)
+        if self.mesh is not None:
+            log.info("multi-device serving mesh: %s", self.mesh.shape)
+        self.mesh_collectives = 0  # device-to-device stack copies in the last tick
+        # every group's records, each tick
+        self._arena = (MeshArena(self.mesh) if self.mesh is not None
+                       else RecordArena(self.device))
         self._stack_event = None  # CUDA event: the last upload's reads of the pool
         # the audio tick's own CUDA stream: a blocking video fetch on the
         # render thread's stream never delays a mix
@@ -702,8 +725,8 @@ class AsciiChatServer:
         frames_rendered = 0
         compute_count = 0
         # Dispatch phase: resolve every group, then render them all with one
-        # call (on a CUDA device one K3 launch over every group's tiles,
-        # each group's records in the server's arena). The "convert" tracer
+        # call (on a CUDA device one K3 launch over every group's tiles, one
+        # per shard on a mesh, each group's records in the server's arena). The "convert" tracer
         # section therefore measures the launch only; the device-compute
         # wait lands in the one blocked "fetch".
         staged: list[tuple] = []  # (grp, members, member_slot, n_uniq)
@@ -740,7 +763,7 @@ class AsciiChatServer:
                 grp = RenderGroup(
                     list(sizes), wc0.width, wc0.height, wc0.caps,
                     unique_filters, key[3],  # the resolved client palette
-                    device=self.device,
+                    device=self.device, mesh=self.mesh,
                 )
                 self._group_cache[cache_key] = grp
                 self.group_creates += 1
@@ -751,6 +774,9 @@ class AsciiChatServer:
         with self.tick_tracer.section("convert"):
             records = render_groups(frames_dev, [s[0] for s in staged], now,
                                     self._arena)
+        if self.mesh is not None:
+            # the render's copies of the stack to the mesh's other devices
+            self.mesh_collectives = self._arena.copies
         with self.tick_tracer.section("fetch"):
             hosts = self._arena.fetch(records)  # one copy, the arena's pinned buffer
         # Drain phase: emit and pack group by group.
@@ -1091,7 +1117,8 @@ class AsciiChatServer:
             # launches of K3 and K4 in this process, counted by their wrappers
             "render_launches": RENDER_GROUP_KERNEL.launches,
             "mixer_launches": audio_ops.MIXER_KERNEL.launches,
-            "mesh": None,
+            "mesh": self.mesh.shape if self.mesh is not None else None,
+            "mesh_collectives": self.mesh_collectives,
             "tick_latency": self.tick_latency.stats_ms(),
             "audio_tick_latency": self.audio_latency.stats_ms(),
             "frame_age": self.frame_age.stats_ms(),

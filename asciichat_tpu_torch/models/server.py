@@ -12,8 +12,21 @@ filters and the palette ramps stay on the host and ride by value in the
 launch. On the CPU each group runs the plain version, :func:`render_compute`.
 The audio half is ``ops/audio.mixer_process``: K4 (``csrc/mixer.cu``) on a
 CUDA device, the plain loop on the CPU. :func:`tick_compute` and
-:class:`ServerTick` put both halves into one step. The mesh path is not
-ported yet (ROADMAP.md).
+:class:`ServerTick` put both halves into one step.
+
+Groups built with a ``mesh`` (``parallel/mesh.py``) render sharded, as the
+JAX package's mesh path does (asciichat_tpu/models/server.py:140-325): each
+grid position renders its receivers x cell rows (``mesh.shard_plan``). On a
+CUDA device that is one K3 launch per shard per tick, covering every group's
+part in that shard, each shard's descriptors pointing at its first pixel
+row of the group's word map and into a record buffer of its own
+(:class:`MeshArena`, one per device), over the source stack copied once a
+tick to each other device of the mesh; on the CPU each part is the plain
+:func:`render_compute` of the shard's receivers, cut to its cell rows.
+:meth:`MeshArena.fetch` gathers the parts on the host into the unsharded
+layout, so the emitter sees what the single-device path gives it. The
+receiver axis needs no padding: a shard with no receivers (or
+no rows) of a group gets no descriptor.
 """
 
 from __future__ import annotations
@@ -27,6 +40,7 @@ import torch
 
 from asciichat_tpu_torch.ops import audio as audio_ops
 from asciichat_tpu_torch.ops import cells, compositor, filters, pixel
+from asciichat_tpu_torch.parallel import mesh as meshlib
 from asciichat_tpu_torch.render import palette as pal
 from asciichat_tpu_torch.render.pipeline import RenderPlan, plan_render
 from asciichat_tpu_torch.render.types import RenderMode, TerminalCapabilities
@@ -92,6 +106,22 @@ def render_compute(
     return cells.records_for_mode(resized, mode, ramp)
 
 
+def cell_rows(family: int, hpx: int) -> int:
+    """Cell rows of a render ``hpx`` pixel rows high in record ``family``."""
+    return (hpx + 1) // 2 if family in cells.HALFBLOCK_FAMILIES else hpx
+
+
+def pixel_rows(family: int, hpx: int, rows: range) -> tuple[int, int]:
+    """The pixel rows [y0, y1) behind cell rows ``rows`` of a render ``hpx``
+    pixel rows high. A half-block cell row r reads pixel rows 2r and
+    ``hb_bot_row(r, hpx)`` (2r + 1, or 2r again in an odd frame's last row),
+    so a shard of cell rows starts at an even pixel row, and only the last
+    shard may hold an odd count of pixel rows."""
+    if family in cells.HALFBLOCK_FAMILIES:
+        return min(2 * rows.start, hpx), min(2 * rows.stop, hpx)
+    return rows.start, rows.stop
+
+
 # K3's limits; csrc/render_group.cu keeps the same numbers.
 K3_MAX_GROUPS = 16  # descriptors per launch
 K3_MAX_RECEIVERS = 16  # receivers per descriptor
@@ -122,7 +152,8 @@ class GroupMaps:
     n_src: int  # sources the maps reference (max cidx + 1)
     min_h: int  # rows and columns the source stack must have
     min_w: int
-    _words: tuple | None = dataclasses.field(default=None, repr=False)  # (shape, map)
+    # device -> (shape, map)
+    _words: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
     def from_host(cls, arrays: dict[str, np.ndarray], dst_h: int, dst_w: int,
@@ -137,19 +168,23 @@ class GroupMaps:
                    min_h=int(maps[1][live].max(initial=-1)) + 1,
                    min_w=int(maps[2][live].max(initial=-1)) + 1)
 
-    def words(self, stack_shape: tuple[int, ...]) -> torch.Tensor:
+    def words(self, stack_shape: tuple[int, ...],
+              device: torch.device | None = None) -> torch.Tensor:
         """K3's map for a uint8 [S, H, W, 3] source stack: int32 [dst_h_px,
-        dst_w] on the maps' device (compositor.pixel_words), made and
-        uploaded when the shape differs from the last call's."""
+        dst_w] on ``device`` (the maps' device when None;
+        compositor.pixel_words), made and uploaded when the shape differs
+        from the last call's on that device."""
+        device = self.cidx.device if device is None else torch.device(device)
         shape = tuple(stack_shape[:3])
-        if self._words is None or self._words[0] != shape:
+        kept = self._words.get(device)
+        if kept is None or kept[0] != shape:
             s, h, w = shape
             if s < self.n_src or h < self.min_h or w < self.min_w:
                 raise ValueError(f"source stack {tuple(stack_shape)} is smaller than the "
                                  f"layout's {self.n_src} x {self.min_h} x {self.min_w}")
             host = compositor.pixel_words(self.k_cidx, self.k_sy, self.k_sx, shape)
-            self._words = (shape, torch.from_numpy(host).to(self.cidx.device))
-        return self._words[1]
+            kept = self._words[device] = (shape, torch.from_numpy(host).to(device))
+        return kept[1]
 
 
 @dataclasses.dataclass(eq=False)
@@ -178,6 +213,7 @@ class K3Job:
     width: int
     ramp: np.ndarray  # uint8 [64]
     receivers: np.ndarray  # uint8 [C, 4] (receiver_words)
+    y0: int = 0  # the maps' pixel row at which the job's hpx rows start (a row shard)
     kept: K3Rows | None = dataclasses.field(default=None, repr=False)
 
     def descriptors(self, stack_shape: tuple[int, ...], records: cells.RecordDict,
@@ -192,7 +228,8 @@ class K3Job:
         shape = tuple(stack_shape[:3])
         kept = self.kept
         if kept is None or kept.shape != shape:
-            words = self.maps.words(shape) if len(self.receivers) else None
+            device = next(iter(records.values())).device
+            words = self.maps.words(shape, device) if len(self.receivers) else None
             kept = self.kept = K3Rows(shape, words)
         if kept.records is not records or kept.sm_count != sm_count:
             kept.rows = self._new_rows(kept.words, records, sm_count)
@@ -208,14 +245,16 @@ class K3Job:
         c = len(self.receivers)
         if not (c and self.hpx and self.width):
             return []
-        cell_rows = (self.hpx + 1) // 2 if self.family in cells.HALFBLOCK_FAMILIES else self.hpx
-        tile_w = tile_width(cell_rows, self.width, sm_count)
+        tile_w = tile_width(cell_rows(self.family, self.hpx), self.width, sm_count)
         outs = [(t.data_ptr(), t.stride(0)) for t in records.values()]
+        # a row shard's map starts at its first pixel row (K3 reads rows
+        # 0..hpx-1 from the word pointer on)
+        first = words.data_ptr() + self.y0 * self.width * words.element_size()
         rows = []
         for c0 in range(0, c, K3_MAX_RECEIVERS):
             row = np.zeros(K3_DESC_WORDS, np.int64)
             ptrs = [p + c0 * stride for p, stride in outs] + [0] * (3 - len(outs))
-            row[:9] = (words.data_ptr(), *ptrs, self.hpx, self.width, tile_w, self.family,
+            row[:9] = (first, *ptrs, self.hpx, self.width, tile_w, self.family,
                        min(c - c0, K3_MAX_RECEIVERS))
             row.view(np.uint8)[136:200] = self.ramp
             rows.append(row)
@@ -276,7 +315,7 @@ class RecordArena:
             return self._views
         spans, used = [], 0
         for family, c, hpx, width in key:
-            rows = (hpx + 1) // 2 if family in cells.HALFBLOCK_FAMILIES else hpx
+            rows = cell_rows(family, hpx)
             span = []
             for name, trailing in cells.FAMILY_RECORDS[family]:
                 shape = (c, rows, width, *trailing)
@@ -375,14 +414,164 @@ def render_group(frames: torch.Tensor, ramp: torch.Tensor, tint: torch.Tensor,
     return _render_k3(frames, [job], RecordArena(frames.device))[0]
 
 
+@dataclasses.dataclass(eq=False)
+class ShardParts:
+    """A group's records from a sharded render: its unsharded geometry and
+    each shard's part, a record dict [the shard's receivers, its cell rows,
+    width, ...] on the shard's device (shards with no receivers or no rows
+    of the group have no part)."""
+
+    family: int
+    receivers: int
+    rows: int
+    width: int
+    parts: list[tuple[meshlib.Shard, cells.RecordDict]]
+
+    @classmethod
+    def of(cls, job: K3Job) -> "ShardParts":
+        """No parts yet, for the group whose whole launch job is ``job``."""
+        return cls(job.family, len(job.receivers), cell_rows(job.family, job.hpx), job.width, [])
+
+
+class MeshArena:
+    """The records of a sharded render: on each device of the mesh a
+    :class:`RecordArena` that holds every part the device's shards render
+    (one fetch per device), and :meth:`fetch`, which gathers the parts on
+    the host into the unsharded layout. ``copies`` is the number of copies
+    of the source stack to other devices that the last render made."""
+
+    def __init__(self, mesh: meshlib.Mesh):
+        self.mesh = mesh
+        self.arenas = {d: RecordArena(d) for d in mesh.device_list()}
+        self._views: dict[torch.device, list[cells.RecordDict]] = {}
+        self.copies = 0
+
+    def layout(self, device: torch.device, jobs: list[K3Job]) -> list[cells.RecordDict]:
+        """Record views on ``device`` for ``jobs``, the parts its shards render."""
+        views = self._views[device] = self.arenas[device].layout(
+            [(j.family, len(j.receivers), j.hpx, j.width) for j in jobs])
+        return views
+
+    def fetch(self, records: list[ShardParts]) -> list[dict[str, np.ndarray]]:
+        """The groups' records on the host in the unsharded layout, fresh
+        arrays for each call: one fetch per device of the parts in its arena
+        (:meth:`RecordArena.fetch`, one copy on a CUDA device), then each
+        part into its receivers and cell rows."""
+        hosts: dict[int, dict[str, np.ndarray]] = {}
+        for dev, arena in self.arenas.items():
+            views = self._views.get(dev)
+            if views:
+                hosts.update(zip(map(id, views), arena.fetch(views)))
+        out = []
+        for g in records:
+            full = {name: np.empty((g.receivers, g.rows, g.width, *trailing), np.uint8)
+                    for name, trailing in cells.FAMILY_RECORDS[g.family]}
+            for shard, rec in g.parts:
+                host = hosts.get(id(rec))
+                if host is None:  # a part of the plain render, not in an arena
+                    host = cells.records_to_numpy(rec)
+                c, r = shard.receivers, shard.rows
+                for name, a in full.items():
+                    a[c.start:c.stop, r.start:r.stop] = host[name]
+            out.append(full)
+        return out
+
+
+def split_job(job: K3Job, mesh: meshlib.Mesh) -> list[tuple[meshlib.Shard, K3Job]]:
+    """A group's launch job cut by the shard plan of ``mesh``: for each
+    shard that holds some of its receivers and cell rows, the job that
+    renders those receivers (views of ``job.receivers``, so a rainbow tint
+    written there reaches them) from the shard's first pixel row of the
+    group's maps (:func:`pixel_rows`)."""
+    out = []
+    for shard in meshlib.shard_plan(mesh, len(job.receivers), cell_rows(job.family, job.hpx)):
+        if not (shard.receivers and shard.rows):
+            continue  # no part of the group here: no descriptor
+        y0, y1 = pixel_rows(job.family, job.hpx, shard.rows)
+        c = shard.receivers
+        out.append((shard, K3Job(job.maps, job.family, y1 - y0, job.width, job.ramp,
+                                 job.receivers[c.start:c.stop], y0=job.y0 + y0)))
+    return out
+
+
+def shard_launches(stacks: dict[torch.device, torch.Tensor],
+                   groups: list[tuple[K3Job, list[tuple[meshlib.Shard, K3Job]]]],
+                   arena: MeshArena, sm_count) -> tuple[list[ShardParts], list[tuple]]:
+    """The K3 side of a sharded render, launching nothing. ``groups`` holds
+    each group's whole job and its :func:`split_job`. Every part is laid
+    out in the arena of its shard's device, and the launches that render
+    them are (stack, descriptor table) pairs, one per shard (one per
+    K3_MAX_GROUPS descriptors), each over the stack on the shard's device.
+    ``sm_count(device)`` sizes the tiles."""
+    out = [ShardParts.of(job) for job, _ in groups]
+    launches = []
+    for dev in arena.arenas:
+        placed = sorted(((shard, gi, job) for gi, (_, parts) in enumerate(groups)
+                         for shard, job in parts if shard.device == dev),
+                        key=lambda p: (p[0].index, p[1]))
+        records = arena.layout(dev, [job for _, _, job in placed])
+        for (shard, gi, _), rec in zip(placed, records):
+            out[gi].parts.append((shard, rec))
+        for index in dict.fromkeys(shard.index for shard, _, _ in placed):
+            mine = [(job, rec) for (shard, _, job), rec in zip(placed, records)
+                    if shard.index == index]
+            tables = k3_tables(stacks[dev], [j for j, _ in mine], [r for _, r in mine],
+                               sm_count(dev))
+            launches += [(stacks[dev], table) for table in tables]
+    return out, launches
+
+
+def _render_sharded(frames: torch.Tensor, groups: list["RenderGroup"],
+                    arena: MeshArena) -> list[ShardParts]:
+    """Every group's shards, from ``frames`` copied to each other device of
+    the mesh (the JAX package all-gathers the stack): on a CUDA device one
+    K3 launch per shard (per K3_MAX_GROUPS descriptors) over its parts of
+    every group, on the CPU the plain :func:`render_compute` of each part's
+    receivers, cut to its cell rows."""
+    stacks = meshlib.replicate(frames, arena.mesh)
+    arena.copies = len(stacks) - 1
+    if frames.device.type == "cpu":
+        out = []
+        for g in groups:
+            out.append(ShardParts.of(g.job))
+            for shard, _ in g.shard_jobs:
+                c = slice(shard.receivers.start, shard.receivers.stop)
+                rec = render_compute(stacks[shard.device], g.ramp, g.tint[c], g.fg_on_bg[c],
+                                     g.is_rainbow[c], g.filter_on[c], g.maps.cidx,
+                                     g.maps.src_y, g.maps.src_x, g.maps.comp_mask,
+                                     mode=g.render.mode, dst_h=g.render.dst_h_px,
+                                     dst_w=g.render.dst_w)
+                r = slice(shard.rows.start, shard.rows.stop)
+                out[-1].parts.append((shard, {k: v[:, r] for k, v in rec.items()}))
+        return out
+    check_tensor(frames, "frames", torch.uint8, (None, None, None, 3), frames.device)
+    out, launches = shard_launches(stacks, [(g.job, g.shard_jobs) for g in groups], arena,
+                                   lambda d: _sm_count(d.index))
+    for frames, table in launches:
+        dev = frames.device
+        with torch.cuda.device(dev):
+            RENDER_GROUP_KERNEL(frames.data_ptr(), table.ctypes.data, len(table),
+                                stream_handle(dev))
+    return out
+
+
 def render_groups(frames: torch.Tensor, groups: list["RenderGroup"], time_s: float = 0.0,
-                  arena: RecordArena | None = None) -> list[cells.RecordDict]:
+                  arena: RecordArena | MeshArena | None = None
+                  ) -> list[cells.RecordDict] | list[ShardParts]:
     """One tick's render of every group from one source stack, one record
     dict per group. Rainbow tints follow ``time_s`` (on the host). On a
     CUDA device: one K3 launch for all the groups (one per K3_MAX_GROUPS
     descriptors), the records in ``arena`` (a fresh one when None), to be
     fetched with its :meth:`RecordArena.fetch`. On the CPU: the plain
-    :func:`render_compute` of each group, and ``arena`` is not used."""
+    :func:`render_compute` of each group, and ``arena`` is not used.
+
+    Groups built on a mesh (all on the same one) render sharded
+    (:func:`_render_sharded`) into ``arena``, a :class:`MeshArena` of that
+    mesh (a fresh one when None), one :class:`ShardParts` per group for its
+    :meth:`MeshArena.fetch`."""
+    mesh = groups[0].mesh if groups else None
+    if any(g.mesh is not mesh for g in groups):
+        raise ValueError("the groups of one render share one mesh, or none")
     rgb = None
     for g in groups:
         if g.device != frames.device:
@@ -390,7 +579,13 @@ def render_groups(frames: torch.Tensor, groups: list["RenderGroup"], time_s: flo
         if g.has_rainbow:
             rgb = rgb or filters.rainbow_color(time_s)
             g._set_rainbow_tint(rgb)
-    if frames.device.type == "cpu":
+    if mesh is not None:
+        if arena is None:
+            arena = MeshArena(mesh)
+        if not isinstance(arena, MeshArena) or arena.mesh is not mesh:
+            raise ValueError("a sharded render needs a MeshArena of the groups' mesh")
+        records = _render_sharded(frames, groups, arena)
+    elif frames.device.type == "cpu":
         records = [render_compute(frames, g.ramp, g.tint, g.fg_on_bg, g.is_rainbow,
                                   g.filter_on, g.maps.cidx, g.maps.src_y, g.maps.src_x,
                                   g.maps.comp_mask, mode=g.render.mode,
@@ -409,8 +604,10 @@ class RenderGroup:
     palette) geometry, rendered from the shared source stack (the receivers
     are the batch dimension) by :func:`render_groups` beside the tick's
     other groups, or alone by :meth:`step`. The ramp and the filter vectors
-    stay on the host. Single device; rebuilt when the source layout or the
-    geometry changes."""
+    stay on the host. Rebuilt when the source layout or the geometry
+    changes. With ``mesh`` (``parallel/mesh.py``) the group renders sharded:
+    :attr:`shard_jobs` holds its part of each shard, and its arena is a
+    :class:`MeshArena`."""
 
     def __init__(
         self,
@@ -421,28 +618,31 @@ class RenderGroup:
         filter_names: list[str],
         palette: str = pal.DEFAULT_PALETTE,
         device: torch.device | str | None = None,
+        mesh: meshlib.Mesh | None = None,
     ):
         self._setup(plan_tick(source_sizes, term_w, term_h, caps,
                               num_clients=len(filter_names)),
-                    filter_names, palette, device)
+                    filter_names, palette, device, mesh)
 
     @classmethod
     def from_plan(cls, plan: ServerTickPlan, filter_names: list[str],
                   palette: str = pal.DEFAULT_PALETTE,
-                  device: torch.device | str | None = None) -> "RenderGroup":
+                  device: torch.device | str | None = None,
+                  mesh: meshlib.Mesh | None = None) -> "RenderGroup":
         """The group of a plan that :func:`plan_tick` already made."""
         grp = cls.__new__(cls)
-        grp._setup(plan, filter_names, palette, device)
+        grp._setup(plan, filter_names, palette, device, mesh)
         return grp
 
     def _setup(self, plan: ServerTickPlan, filter_names: list[str], palette: str,
-               device: torch.device | str | None) -> None:
+               device: torch.device | str | None, mesh: meshlib.Mesh | None) -> None:
         self.render = plan.render
         self.palette = palette
         self.device = torch.device(device) if device is not None else default_device()
+        self.mesh = mesh
         self.family = cells.mode_family(self.render.mode)
         # the records of step(), reused tick after tick
-        self.arena = RecordArena(self.device)
+        self.arena = MeshArena(mesh) if mesh is not None else RecordArena(self.device)
         cidx, src_y, src_x, comp_mask = compositor.host_maps(plan.composite)
         self.load_state({"ramp": pal.char_index_ramp_array(palette), "cidx": cidx,
                          "src_y": src_y, "src_x": src_x, "comp_mask": comp_mask})
@@ -468,6 +668,7 @@ class RenderGroup:
             self.maps = GroupMaps.from_host(arrays, self.render.dst_h_px, self.render.dst_w,
                                             self.device)
         self._job: K3Job | None = None  # rebuilt from the new state
+        self._shard_jobs: list[tuple[meshlib.Shard, K3Job]] | None = None
         self._rainbow_rows: list[int] | None = None
 
     @property
@@ -480,6 +681,14 @@ class RenderGroup:
                               receiver_words(self.tint.numpy(), self.fg_on_bg.numpy(),
                                              self.is_rainbow.numpy(), self.filter_on.numpy()))
         return self._job
+
+    @property
+    def shard_jobs(self) -> list[tuple[meshlib.Shard, K3Job]]:
+        """:attr:`job` cut by the shard plan of the group's mesh
+        (:func:`split_job`), rebuilt with it."""
+        if self._shard_jobs is None:
+            self._shard_jobs = split_job(self.job, self.mesh)
+        return self._shard_jobs
 
     def set_filters(self, names: list[str], time_s: float = 0.0) -> None:
         """Per-receiver filter params are data. Rainbow tints are
@@ -505,14 +714,14 @@ class RenderGroup:
             if receivers is not None:
                 receivers[i, :3] = rgb
 
-    def step(self, frames: torch.Tensor, time_s: float = 0.0) -> cells.RecordDict:
+    def step(self, frames: torch.Tensor, time_s: float = 0.0) -> cells.RecordDict | ShardParts:
         """frames uint8 [S, Hmax, Wmax, 3] on the group's device -> records
         for the group's receivers: :func:`render_groups` of this group
         alone, through the group's own arena (so the records are reused by
-        the next step)."""
+        the next step); on a mesh, the group's :class:`ShardParts`."""
         return render_groups(frames, [self], time_s, self.arena)[0]
 
-    def fetch(self, records: cells.RecordDict) -> dict[str, np.ndarray]:
+    def fetch(self, records: cells.RecordDict | ShardParts) -> dict[str, np.ndarray]:
         """The records of the last :meth:`step` on the host: through the
         arena's pinned buffer on a CUDA device, so consume them before the
         next fetch."""

@@ -50,7 +50,7 @@ MAX_SOURCES = 32  # K4 keeps one warp lane per source (MAX_CLIENTS, apps/server.
 
 MIXER_KERNEL = Kernel(
     "mixer", "ac_mixer", "asciichat_tpu_torch/csrc/mixer.cu",
-    "asciichat_tpu/ops/audio.py:155")
+    "asciichat_tpu/ops/audio.py:156")
 
 
 def db_to_linear(db):
@@ -315,7 +315,7 @@ def mixer_process(
 
 CAPTURE_KERNEL = Kernel(
     "capture_chain", "ac_capture_chain", "asciichat_tpu_torch/csrc/capture.cu",
-    "asciichat_tpu/ops/audio.py:474")
+    "asciichat_tpu/ops/audio.py:476")
 
 # K5's stages, a bit each (csrc/capture.cu kStage*)
 STAGE_AEC, STAGE_HIGHPASS, STAGE_GATE = 1, 2, 4

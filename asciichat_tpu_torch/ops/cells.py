@@ -75,7 +75,7 @@ FAMILY_RECORDS: dict[int, tuple[tuple[str, tuple[int, ...]], ...]] = {
 
 CELL_RECORDS_KERNEL = Kernel(
     "cell_records", "ac_cell_records", "asciichat_tpu_torch/csrc/cell_records.cu",
-    "asciichat_tpu/ops/cells.py:85")
+    "asciichat_tpu/ops/cells.py:86")
 
 
 def mode_family(mode: str) -> int:

@@ -1,20 +1,25 @@
-"""Options system: the domain registry and the argparse surface built from it.
+"""Options system: domain registry + TOML config + lock-free snapshots +
+generated help/completions.
 
 Copied from ``asciichat_tpu/utils/options.py`` (the reference's lib/options/,
 SURVEY §2c):
 - single-source registry of descriptors grouped by domain with per-mode
   bitmasks (lib/options/registry/*.c)
-- the argparse surface generated from it (the reference's option generators)
-
-The TOML config store and the completion and man page generators stay in
-the JAX package: ``--config``, ``completions`` and ``manpage`` are not yet
-ported (ROADMAP.md Queue 1).
+- builder API generating the argparse surface (lib/options/builder/)
+- TOML config files + named presets (lib/options/config/config.c), which
+  ``apps/main.py`` layers under the command line (``--config``/``--preset``)
+- RCU-published immutable snapshots read lock-free from hot threads
+  (lib/options/rcu.c, GET_OPTION()): here an atomically-swapped frozen
+  namespace — Python reference assignment is atomic, readers never lock
+- generated shell completions + manpage text (lib/options/ generators),
+  byte for byte the JAX package's (``completions``, ``manpage``)
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import tomllib
 from typing import Any, Callable
 
 
@@ -40,9 +45,50 @@ class OptionDescriptor:
     choices: tuple | None = None
     validator: Callable[[Any], bool] | None = None
     short: str | None = None
-    # argparse-surface metadata:
+    # argparse-surface metadata (builder API analog, lib/options/builder/):
     cli_type: Callable[[str], Any] | None = None  # CLI string converter
     positional: bool = False  # bare argument instead of --flag
+
+    def validate(self, value: Any) -> Any:
+        if value is None:
+            # programmatic reset (publish(option=None)): None always means
+            # "unset" — str(None) would store the literal "None" and
+            # int(None) would raise despite None being a registered default
+            return None
+        if self.cli_type is not None:
+            # the CLI converter is the string codec AND validator for EVERY
+            # string source: argparse applies it on the command line
+            # (build_parser hands argparse cli_type and withholds choices),
+            # and TOML/publish strings must take the same path — a
+            # config-file stdin-size otherwise stays a raw string and
+            # StdinSource(*"640x480") explodes downstream. Choices on such
+            # descriptors document the RAW strings, so they are not checked
+            # against the converted value.
+            # plain scalars (TOML `color-mode = 16` is a natural mistake for
+            # "16") are stringified through the converter too — only already-
+            # converted values (tuples, enums from the argparse path) pass
+            # through. Exact type check: ColorLevel subclasses int and must
+            # NOT be re-stringified.
+            if type(value) in (str, int, float):
+                try:
+                    value = self.cli_type(str(value))
+                except ValueError:
+                    raise
+                except Exception as e:  # argparse.ArgumentTypeError etc.
+                    raise ValueError(f"--{self.name}: {e}") from None
+            return value if self.validator is None or self.validator(value) \
+                else self._invalid(value)
+        if self.type is bool and isinstance(value, str):
+            value = value.lower() in ("1", "true", "yes", "on")
+        value = self.type(value)
+        if self.choices and value not in self.choices:
+            raise ValueError(f"--{self.name}: {value!r} not in {self.choices}")
+        if self.validator and not self.validator(value):
+            raise ValueError(f"--{self.name}: invalid value {value!r}")
+        return value
+
+    def _invalid(self, value: Any):
+        raise ValueError(f"--{self.name}: invalid value {value!r}")
 
 
 class OptionsRegistry:
@@ -66,10 +112,107 @@ class OptionsRegistry:
                 continue
             yield d
 
+    def defaults(self) -> dict[str, Any]:
+        return {d.name: d.default for d in self._descriptors.values()}
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._descriptors
+
+    def __getitem__(self, name: str) -> OptionDescriptor:
+        return self._descriptors[name]
+
+
+class FrozenOptions:
+    """Immutable snapshot; attribute reads are the GET_OPTION() analog."""
+
+    __slots__ = ("_values",)
+
+    def __init__(self, values: dict[str, Any]):
+        object.__setattr__(self, "_values", dict(values))
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self._values[name.replace("_", "-")]
+        except KeyError:
+            raise AttributeError(name) from None
+
+    def __getitem__(self, name: str) -> Any:
+        return self._values[name]
+
+    def __setattr__(self, name, value):
+        raise AttributeError("options snapshots are immutable; use publish()")
+
+    def as_dict(self) -> dict[str, Any]:
+        return dict(self._values)
+
+
+class OptionsStore:
+    """Atomically-swapped current snapshot (RCU publish analog)."""
+
+    def __init__(self, registry: OptionsRegistry):
+        self.registry = registry
+        self._current = FrozenOptions(registry.defaults())
+
+    @property
+    def current(self) -> FrozenOptions:
+        return self._current  # single reference read: lock-free for readers
+
+    def publish(self, **overrides: Any) -> FrozenOptions:
+        values = self._current.as_dict()
+        for k, v in overrides.items():
+            key = k.replace("_", "-")
+            if key not in self.registry:
+                raise KeyError(f"unknown option {key!r}")
+            values[key] = self.registry[key].validate(v)
+        snap = FrozenOptions(values)
+        self._current = snap
+        return snap
+
+    def load_toml(self, path: str, preset: str | None = None) -> FrozenOptions:
+        """[domain] tables + optional [preset.<name>] overlays
+        (lib/options/config/config.c semantics)."""
+        with open(path, "rb") as f:
+            data = tomllib.load(f)
+        overrides: dict[str, Any] = {}
+
+        def absorb(table: dict) -> None:
+            for dom, section in table.items():
+                if dom == "preset":
+                    continue
+                if not isinstance(section, dict):
+                    # top-level bare key — unknown names must fail loudly
+                    # like their in-table counterparts (a typo'd `pasword`
+                    # silently dropped means an unauthenticated server)
+                    if dom not in self.registry:
+                        raise KeyError(f"unknown option {dom!r} in {path}")
+                    overrides[dom] = section
+                    continue
+                for key, value in section.items():
+                    name = key if key in self.registry else f"{dom}-{key}"
+                    if name in self.registry:
+                        overrides[name] = value
+                    else:
+                        raise KeyError(f"unknown option {dom}.{key} in {path}")
+
+        absorb(data)
+        if preset:
+            presets = data.get("preset", {})
+            if preset not in presets:
+                raise KeyError(f"no preset {preset!r} in {path}")
+            absorb(presets[preset])
+        # which option names the FILE actually set — config layering must
+        # only apply those, never registry defaults riding in the snapshot
+        # (a default 'address'/'port' would clobber CLI positionals and
+        # per-mode argparse defaults)
+        self.last_toml_keys = frozenset(overrides)
+        return self.publish(**{k.replace("-", "_"): v for k, v in overrides.items()})
+
 
 # ---------------------------------------------------------------------------
-# The argparse surface, generated from the registry: the CLI is GENERATED
-# from descriptors so flags and help cannot drift.
+# Generators (argparse surface / help / completions), from the registry
+# single source of truth (lib/options/builder/builder.c analog: the CLI is
+# GENERATED from descriptors so flags, TOML keys, completions and help
+# cannot drift).
 
 
 def apply_to_parser(registry: OptionsRegistry, parser, mode: Mode,
@@ -96,6 +239,97 @@ def apply_to_parser(registry: OptionsRegistry, parser, mode: Mode,
             if d.choices and d.cli_type is None:
                 kw["choices"] = list(d.choices)
             parser.add_argument(f"--{d.name}", **kw)
+
+
+def generate_help(registry: OptionsRegistry, mode: Mode) -> str:
+    out = []
+    domains: dict[str, list[OptionDescriptor]] = {}
+    for d in registry.descriptors(mode=mode):
+        domains.setdefault(d.domain, []).append(d)
+    for dom in sorted(domains):
+        out.append(f"{dom} options:")
+        for d in sorted(domains[dom], key=lambda x: x.name):
+            choices = f" ({'/'.join(map(str, d.choices))})" if d.choices else ""
+            out.append(f"  --{d.name:<24}{d.help}{choices} [default: {d.default}]")
+        out.append("")
+    return "\n".join(out)
+
+
+def generate_completions(registry: OptionsRegistry, shell: str, prog: str = "asciichat-tpu") -> str:
+    names = sorted(f"--{d.name}" for d in registry.descriptors())
+    if shell == "bash":
+        return (
+            f"_{prog.replace('-', '_')}() {{\n"
+            f"  COMPREPLY=( $(compgen -W \"{' '.join(names)}\" -- \"${{COMP_WORDS[COMP_CWORD]}}\") )\n"
+            f"}}\ncomplete -F _{prog.replace('-', '_')} {prog}\n"
+        )
+    if shell == "zsh":
+        # help text is interpolated into a single-quoted _arguments spec:
+        # apostrophes ('\'' splice) and square brackets (spec delimiters)
+        # must be escaped or ONE flag's help breaks every completion
+        def zq(s: str) -> str:
+            return (s.replace("'", "'\\''")
+                     .replace("[", "\\[").replace("]", "\\]"))
+
+        args = "\n  ".join(f"'{n}[{zq(registry[n[2:]].help)}]'" for n in names)
+        return f"#compdef {prog}\n_arguments \\\n  {args}\n"
+    if shell == "fish":
+        # fish single quotes: backslash-escape embedded ' and \
+        def fq(s: str) -> str:
+            return s.replace("\\", "\\\\").replace("'", "\\'")
+
+        return "\n".join(
+            f"complete -c {prog} -l {d.name} -d '{fq(d.help)}'"
+            for d in sorted(registry.descriptors(), key=lambda x: x.name)
+        )
+    if shell == "pwsh":
+        words = ", ".join(f"'--{d.name}'" for d in
+                         sorted(registry.descriptors(), key=lambda x: x.name))
+        return (
+            f"Register-ArgumentCompleter -Native -CommandName {prog} "
+            "-ScriptBlock {\n"
+            "  param($wordToComplete, $commandAst, $cursorPosition)\n"
+            f"  @({words}) | Where-Object {{ $_ -like \"$wordToComplete*\" }} |\n"
+            "    ForEach-Object { [System.Management.Automation.CompletionResult]::new($_) }\n"
+            "}\n"
+        )
+    raise ValueError(f"unknown shell {shell!r}")
+
+
+def generate_manpage(registry: OptionsRegistry, prog: str = "asciichat-tpu") -> str:
+    """troff man page from the registry (the reference's manpage generator
+    role, lib/options/ generators)."""
+    import time as _time
+
+    out = [
+        f'.TH {prog.upper()} 1 "{_time.strftime("%Y-%m-%d")}" "{prog}" '
+        '"User Commands"',
+        ".SH NAME",
+        f"{prog} \\- TPU-native terminal video chat",
+        ".SH SYNOPSIS",
+        f".B {prog}",
+        ".I mode",
+        "[\\fIOPTIONS\\fR]",
+        ".SH MODES",
+        "mirror, server, client, discovery-service, discovery, bench, "
+        "strings, completions",
+        ".SH OPTIONS",
+    ]
+    domains: dict[str, list[OptionDescriptor]] = {}
+    for d in registry.descriptors():
+        domains.setdefault(d.domain, []).append(d)
+    for dom in sorted(domains):
+        out.append(f".SS {dom}")
+        for d in sorted(domains[dom], key=lambda x: x.name):
+            out.append(".TP")
+            arg = "" if d.type is bool else f" \\fI{d.type.__name__.upper()}\\fR"
+            out.append(f"\\fB--{d.name}\\fR{arg}")
+            # identity checks: `0 in (None, False)` is True (0 == False),
+            # which hid the 0=auto defaults of width/height/render-mode
+            extra = ("" if d.default is None or d.default is False
+                     else f" (default: {d.default})")
+            out.append(d.help.replace("-", "\\-") + extra)
+    return "\n".join(out) + "\n"
 
 
 # ---------------------------------------------------------------------------

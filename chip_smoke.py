@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render path, audio mixer, live server and client,
-and its WebRTC and discovery modes, once on one NVIDIA card and check them.
+its WebRTC and discovery modes, its sharded serving and the rest of its CLI,
+once on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -105,15 +106,34 @@ so the exit code is non-zero:
     ``zstandard`` imports (its viewer asks for compressed frames); the
     host writes its K3 and K4 launches when it is stopped (K3 > 0). No
     STUN server is configured: nothing leaves the machine;
+19. multi-device serving as forced meshes on the one card, and the rest of
+    the CLI: ``render_groups`` of phase 5b's three geometry groups under
+    meshes of 2, 4 and (4, 2) shards on ``cuda:0`` (``parallel/mesh.py``),
+    10 ticks bit-identical to the unsharded K3 render, with one K3 launch a
+    tick for each shard that holds a part, timed in turns against the
+    unsharded tick (ticks/s through the fetch and the emitter, the render
+    call's eager time and its device time replayed from a CUDA graph); ``apps.main server`` under
+    ``ASCIICHAT_FORCE_MESH=4`` serves 4 raw clients frames equal to the
+    oracle, and its inspector shows the mesh ``{"clients": 4}``,
+    ``mesh_collectives`` 0 (every shard on one card), no failed tick, and in
+    a steady window one K3 launch per tick for each shard with receivers
+    (to within the one tick that may be in flight at each read),
+    with its tick latency and ``convert`` stage; ``apps.main query PID`` of
+    that server prints its Python stacks (the SIGUSR1 channel); ``mirror
+    --config build/chip_smoke.toml --preset narrow --snapshot`` prints
+    frames the preset's width wide (run beside the server);
 18. the kernels, their launches on each path, their times against the
-    plain versions and their bounds, as one JSON line. A kernel's
+    plain versions and their bounds, as one JSON line, printed after phase
+    19. A kernel's
     ``launches`` is the count on its user-facing path: the mirror (phase 6)
     for K1 and K2, the live server (phase 11) for K3 and K4, the live client
     (phase 13) for K5;
     ``launches_by_path`` holds every path's own count (``render_file``:
     phase 15's renders on the card; ``webrtc_server`` and
-    ``discovery_host``: phase 17's, each a fresh process); the line also carries phase 6b's
-    ``rain``, phase 15's ``render_file`` times and phase 16's ``web``. ``ms`` is the eager
+    ``discovery_host``: phase 17's, each a fresh process; ``server_mesh``:
+    phase 19's server); the line also carries phase 6b's
+    ``rain``, phase 15's ``render_file`` times, phase 16's ``web`` and phase
+    19's ``mesh``. ``ms`` is the eager
     time (CUDA events around back-to-back wrapper calls), ``device_ms`` the
     device-only time (calls replayed from one CUDA graph); K3's entry adds
     phase 5b's ``three_groups``. ``bound_ms`` is
@@ -146,6 +166,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -167,6 +188,7 @@ from asciichat_tpu_torch.net import packet as pkt
 from asciichat_tpu_torch.net import protocol as proto
 from asciichat_tpu_torch.net.transport import connect_tcp
 from asciichat_tpu_torch.ops import audio, cells, compositor, filters, pixel, rain, resize
+from asciichat_tpu_torch.parallel import mesh as meshlib
 from asciichat_tpu_torch.render import emitter, oracle, palette
 from asciichat_tpu_torch.render.pipeline import AsciiRenderer, plan_render
 from asciichat_tpu_torch.render.types import ColorLevel, RenderMode, TerminalCapabilities
@@ -224,6 +246,10 @@ CLI_FRAMES = 20
 RF_FRAMES = 30  # phase 15's test-pattern frames per render
 RF_PALETTES = ("standard", "blocks")  # blocks: UTF-8 glyphs, atlas row 95
 RF_TIMED_MODES = ("truecolor_fg", "halfblock_truecolor", "256color")
+MESH_SHAPES = ((2, 1), (4, 1), (4, 2))  # phase 19's meshes on the card: (clients, space)
+MESH_TICKS = 10
+MESH_FORCE = 4  # the live server's ASCIICHAT_FORCE_MESH
+MESH_WINDOW_S = 2.0  # its steady window
 
 KERNELS = (resize.RESIZE_KERNEL, cells.CELL_RECORDS_KERNEL,
            server.RENDER_GROUP_KERNEL, audio.MIXER_KERNEL, audio.CAPTURE_KERNEL)
@@ -233,6 +259,7 @@ MAIN_PATH = {"resize_nn": "mirror", "cell_records": "mirror",
              "capture_chain": "live_client"}
 
 CARD = ""  # "name, power limit" of the card, set in phase 1
+LIVE_STAGES: dict[str, dict] = {}  # live server -> its inspector's tick_stages_ms
 
 
 def say(msg: str) -> None:
@@ -1113,8 +1140,10 @@ class AppProcess:
     entered, it waits until the process accepts on ``port``; left on an
     error, it prints the log's tail; it always stops the process."""
 
-    def __init__(self, log_name: str, argv: list[str], port: int, prelude: str = ""):
+    def __init__(self, log_name: str, argv: list[str], port: int, prelude: str = "",
+                 env: dict[str, str] | None = None):
         self.port, self.argv, self.prelude = port, argv, prelude
+        self.extra_env = env or {}
         self.log_path = ROOT / "build" / log_name
         self.proc = None
 
@@ -1122,6 +1151,7 @@ class AppProcess:
         self.log_path.parent.mkdir(parents=True, exist_ok=True)
         env = dict(os.environ)
         env.pop("ASCIICHAT_TORCH_DEVICE", None)  # the default device: the card
+        env.update(self.extra_env)
         if self.prelude:  # the code runs first in the process
             cmd = [sys.executable, "-c", self.prelude + "import sys\n"
                    "from asciichat_tpu_torch.apps.main import main\n"
@@ -1173,11 +1203,12 @@ class ServerProcess(AppProcess):
     """``apps.main server`` (with ``extra`` arguments) on a free port, with
     its inspector on another."""
 
-    def __init__(self, log_name: str, *extra: str, prelude: str = ""):
+    def __init__(self, log_name: str, *extra: str, prelude: str = "",
+                 env: dict[str, str] | None = None):
         port, self.inspect_port = free_port(), free_port()
         super().__init__(log_name, ["server", "--host", "127.0.0.1", "--port", str(port),
                                     "--inspect-port", str(self.inspect_port),
-                                    "--log-level", "WARNING", *extra], port, prelude)
+                                    "--log-level", "WARNING", *extra], port, prelude, env)
 
     def state(self) -> dict:
         """The inspector's /state/server."""
@@ -1213,11 +1244,19 @@ def phase11_live_server() -> dict[str, int]:
     for key in ("render_launches", "mixer_launches"):
         if not state.get(key, 0) > 0:
             bad.append(f"{key} {state.get(key)}")
+    in_flight = state.get("render_launches", 0) - state.get("tick_compute", 0)
+    if state.get("mesh") is not None or not 0 <= in_flight <= 1:
+        # one geometry group: one K3 launch for each rendered tick (a tick
+        # counts its render after its launch: one may be in flight)
+        bad.append(f"mesh {state.get('mesh')}, render_launches {state.get('render_launches')} "
+                   f"for tick_compute {state.get('tick_compute')}")
     if bad:
         raise AssertionError(f"inspector /state/server: {'; '.join(bad)}")
     lat, alat = state["tick_latency"], state["audio_tick_latency"]
-    say(f"  ok  inspector: device {state['device']}, tick_compute {state['tick_compute']}, "
-        f"device_failures 0, audio_failures 0, render_launches {state['render_launches']}, "
+    LIVE_STAGES["live_server"] = state["tick_stages_ms"]
+    say(f"  ok  inspector: device {state['device']}, mesh None, tick_compute "
+        f"{state['tick_compute']}, device_failures 0, audio_failures 0, render_launches "
+        f"{state['render_launches']} (one a rendered tick), "
         f"mixer_launches {state['mixer_launches']}")
     say(f"  time live server video tick ({lat['n']} ticks): p50 {lat['p50_ms']} ms, "
         f"p99 {lat['p99_ms']} ms, worst {lat['worst_ms']} ms; stages (ms per tick) "
@@ -2022,6 +2061,233 @@ def phase17_webrtc_discovery() -> dict[str, dict[str, int]]:
     return paths
 
 
+def mesh_label(clients: int, space: int) -> str:
+    return f"{clients}" if space == 1 else f"{clients}x{space}"
+
+
+def mesh_groups(dev, mesh) -> list[server.RenderGroup]:
+    sizes = [(UPLINK_W, UPLINK_H)] * SERVER_SOURCES
+    return [server.RenderGroup(sizes, w, h, caps, names, device=dev, mesh=mesh)
+            for w, h, caps, names in THREE_GROUPS]
+
+
+def mesh_renders(dev, stack: torch.Tensor) -> dict:
+    """Phase 5b's three groups under each forced mesh against the unsharded
+    render: bit for bit over MESH_TICKS ticks, one K3 launch a tick per
+    shard with a part, then timed in turns."""
+    single, single_arena = mesh_groups(dev, None), server.RecordArena(dev)
+    runs = {"single": (single, single_arena)}
+    out: dict = {"ticks": MESH_TICKS, "launches_per_tick": {"single": 1}}
+    for clients, space in MESH_SHAPES:
+        label = mesh_label(clients, space)
+        mesh = meshlib.make_mesh(clients * space, space, [dev] * (clients * space))
+        groups, arena = mesh_groups(dev, mesh), server.MeshArena(mesh)
+        runs[label] = (groups, arena)
+        reset_launches()
+        got = [arena.fetch(server.render_groups(stack, groups, 100.0 + t / 60, arena))
+               for t in range(MESH_TICKS)]
+        launches = read_launches()[server.RENDER_GROUP_KERNEL.name]
+        shards = len({shard.index for g in groups for shard, _ in g.shard_jobs})
+        if launches != shards * MESH_TICKS:
+            raise AssertionError(f"mesh {label}: {launches} K3 launches over {MESH_TICKS} "
+                                 f"ticks, expected {shards} a tick")
+        for t, hosts in enumerate(got):
+            wants = single_arena.fetch(server.render_groups(stack, single, 100.0 + t / 60,
+                                                            single_arena))
+            for g, host, want in zip(groups, hosts, wants):
+                if any(not np.array_equal(host[k], want[k]) for k in want):
+                    raise AssertionError(f"mesh {label} tick {t} {g.render.mode}: records "
+                                         "differ from the unsharded K3 render")
+        out["launches_per_tick"][label] = shards
+        say(f"  ok  mesh {mesh.shape} on {dev}: {MESH_TICKS} ticks of the 3 groups "
+            f"bit-identical to the unsharded render, {shards} K3 launches a tick")
+
+    def tick(groups, arena):
+        hosts = arena.fetch(server.render_groups(stack, groups, 100.0, arena))
+        for g, host in zip(groups, hosts):
+            r = g.render
+            emitter.emit_frames(host, r.mode, g.palette, pad_w=r.pad_w, pad_h=r.pad_h)
+
+    order = list(runs) + list(runs)[::-1]  # in turns
+    tick_ms: dict[str, list[float]] = {}
+    render_ms: dict[str, list[float]] = {}
+    device_ms: dict[str, list[float]] = {}
+    for label in order:
+        groups, arena = runs[label]
+
+        def render():
+            return server.render_groups(stack, groups, 100.0, arena)
+
+        tick_ms.setdefault(label, []).append(host_ms(lambda: tick(groups, arena)))
+        render_ms.setdefault(label, []).append(cuda_ms(render, iters=50))
+        device_ms.setdefault(label, []).append(graph_ms(render))
+    out["ticks_per_s"] = {k: [1e3 / v for v in ms] for k, ms in tick_ms.items()}
+    out.update(render_ms=render_ms, device_ms=device_ms)
+    for label in runs:
+        say(f"  time {label}: {fmt(out['ticks_per_s'][label])} ticks/s through the fetch "
+            f"and the emitter, render_groups {fmt(render_ms[label])} ms eager, "
+            f"{fmt(device_ms[label])} ms device only ({out['launches_per_tick'][label]} K3 "
+            f"launches a tick) [{CARD}]")
+    return out
+
+
+async def mesh_session(srv: "ServerProcess", pictures: list[np.ndarray],
+                       wants: list[bytes]) -> tuple[dict, dict, float]:
+    """LIVE_FILTERS' raw clients get frames equal to the oracle; then a
+    steady window where each source uploads at LIVE_UPLINK_FPS. The
+    inspector's state before and after the window, and its length."""
+    P = pkt.PacketType
+    clients = []
+    loop = asyncio.get_running_loop()
+    try:
+        for name, want in zip(LIVE_FILTERS, wants):
+            t = await connect_tcp("127.0.0.1", srv.port)
+            c = LiveClient(t, want)
+            clients.append(c)
+            wire = proto.WireCapabilities(
+                caps=HB_TRUECOLOR, width=TERM_W, height=TERM_H, capabilities_mask=0x1,
+                color_filter=filters.FILTER_NAMES.index(name))
+            await t.send(P.CLIENT_CAPABILITIES, wire.pack())
+            await asyncio.wait_for(c.registered.wait(), LIVE_WAIT_S)
+        for c, pic in zip(clients, pictures):
+            await c.t.send(P.IMAGE_FRAME, pkt.pack_image_frame(pic.tobytes(), UPLINK_W, UPLINK_H))
+        for i, c in enumerate(clients):
+            try:
+                await asyncio.wait_for(c.matched.wait(), LIVE_WAIT_S)
+            except TimeoutError:
+                raise AssertionError(f"mesh client {i} ({LIVE_FILTERS[i]}): none of its "
+                                     f"{c.frames} frames equals the oracle") from None
+        before = await loop.run_in_executor(None, srv.state)
+        t0 = loop.time()
+        k = 0
+        while loop.time() - t0 < MESH_WINDOW_S:
+            k += 1
+            for i, c in enumerate(clients):
+                pic = pictures[(i + k) % len(pictures)]
+                await c.t.send(P.IMAGE_FRAME,
+                               pkt.pack_image_frame(pic.tobytes(), UPLINK_W, UPLINK_H))
+            await asyncio.sleep(max(0.0, t0 + k / LIVE_UPLINK_FPS - loop.time()))
+        after = await loop.run_in_executor(None, srv.state)
+        return before, after, loop.time() - t0
+    finally:
+        for c in clients:
+            c.task.cancel()
+            await c.t.close()
+
+
+def query_stacks(pid: int) -> str:
+    """``apps.main query PID``: the Python stacks of its report."""
+    r = subprocess.run([sys.executable, "-m", "asciichat_tpu_torch.apps.main", "query",
+                        str(pid)], cwd=ROOT, capture_output=True, timeout=120)
+    if r.returncode != 0:
+        raise AssertionError(f"query exited {r.returncode}: "
+                             f"{r.stderr.decode(errors='replace')[-2000:]}")
+    return json.loads(r.stdout)["pystacks"]
+
+
+CONFIG_TOML = """[display]
+width = 100
+stretch = true
+color-mode = "none"
+[preset.narrow.display]
+width = 64
+"""
+
+
+def mono_width(line: bytes) -> int:
+    """Columns of a monochrome line, where ESC[Nb repeats the previous
+    character N more times."""
+    return sum(int(m[1]) if m[1] else 1 for m in re.finditer(rb"\x1b\[(\d+)b|.", line, re.S))
+
+
+def config_cli() -> subprocess.Popen:
+    """``mirror --config build/chip_smoke.toml --preset narrow --snapshot``
+    on the card, started in the background."""
+    path = ROOT / "build" / "chip_smoke.toml"
+    path.write_text(CONFIG_TOML)
+    env = dict(os.environ)
+    env.pop("ASCIICHAT_TORCH_DEVICE", None)
+    cmd = [sys.executable, "-m", "asciichat_tpu_torch.apps.main", "mirror", "--test-pattern",
+           "--snapshot", "--height", "12", "--config", str(path), "--preset", "narrow"]
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+
+
+def phase19_mesh(dev, stack: torch.Tensor) -> tuple[dict[str, int], dict]:
+    say("phase 19: multi-device serving as forced meshes on the one card, and the rest "
+        "of the CLI (--config/--preset, query)")
+    t19 = time.monotonic()
+    cli = config_cli()
+    try:
+        report = mesh_renders(dev, stack)
+        rng = np.random.default_rng(71)
+        pictures = [rng.integers(0, 256, (UPLINK_H, UPLINK_W, 3), dtype=np.uint8)
+                    for _ in LIVE_FILTERS]
+        sizes = [(UPLINK_W, UPLINK_H)] * len(pictures)
+        comp = compositor.composite_reference(
+            np.stack(pictures), compositor.plan_composite(sizes, TERM_W, TERM_H))
+        wants = [oracle.ascii_convert_with_capabilities(
+            filters.apply_color_filter_reference(comp, name), TERM_W, 2 * TERM_H, HB_TRUECOLOR)
+            for name in LIVE_FILTERS]
+        with ServerProcess("chip_smoke_mesh_server.log",
+                           env={"ASCIICHAT_FORCE_MESH": str(MESH_FORCE)}) as srv:
+            before, after, took = asyncio.run(mesh_session(srv, pictures, wants))
+            stacks = query_stacks(srv.proc.pid)
+            srv.check()
+        out, err = cli.communicate(timeout=LIVE_WAIT_S)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.communicate()
+    # the window's group: the unique filters of LIVE_FILTERS on MESH_FORCE shards
+    unique = len(dict.fromkeys(LIVE_FILTERS))
+    plan = meshlib.shard_plan(meshlib.make_mesh(MESH_FORCE, devices=[dev] * MESH_FORCE),
+                              unique, TERM_H)
+    shards = sum(1 for s in plan if s.receivers and s.rows)
+    ticks = after["tick_compute"] - before["tick_compute"]
+    launches = after["render_launches"] - before["render_launches"]
+    bad = []
+    if after.get("mesh") != {"clients": MESH_FORCE} or after.get("mesh_collectives") != 0:
+        bad.append(f"mesh {after.get('mesh')}, mesh_collectives {after.get('mesh_collectives')}")
+    if not str(after.get("device", "")).startswith("cuda") or after.get("device_failures"):
+        bad.append(f"device {after.get('device')}, device_failures {after.get('device_failures')}")
+    # a tick counts its render after its launches: at each read one tick
+    # may be in flight
+    if not ticks > 0 or abs(launches - shards * ticks) > shards:
+        bad.append(f"{launches} K3 launches over {ticks} rendered ticks, expected {shards} a tick")
+    if bad:
+        raise AssertionError(f"mesh server inspector: {'; '.join(bad)}")
+    lat = after["tick_latency"]
+    LIVE_STAGES["server_mesh"] = after["tick_stages_ms"]
+    say(f"  ok  server under ASCIICHAT_FORCE_MESH={MESH_FORCE}: {len(LIVE_FILTERS)} clients got "
+        f"frames byte-identical to the oracle; inspector mesh {after['mesh']}, "
+        f"mesh_collectives 0, device {after['device']}, {launches} K3 launches over {ticks} "
+        f"rendered ticks ({shards} a tick) in a {took:.1f} s window")
+    say(f"  time mesh server video tick ({lat['n']} ticks): p50 {lat['p50_ms']} ms, p99 "
+        f"{lat['p99_ms']} ms, {ticks / took:.1f} rendered ticks/s; convert "
+        f"{after['tick_stages_ms'].get('convert')} ms against the unsharded server's "
+        f"{LIVE_STAGES.get('live_server', {}).get('convert')} ms (phase 11); stages "
+        f"{json.dumps(after['tick_stages_ms'])} [{CARD}]")
+    if "hread 0x" not in stacks or "File " not in stacks:
+        raise AssertionError(f"query printed no Python stacks: {stacks[:500]!r}")
+    say(f"  ok  query {srv.proc.pid}: {stacks.count('hread 0x')} threads' Python stacks "
+        f"({len(stacks)} bytes)")
+    widths = [mono_width(line) for line in out.rstrip(b"\n").split(b"\n")]
+    if cli.returncode != 0 or widths != [64] * 12:
+        raise AssertionError(f"mirror --config --preset exited {cli.returncode}, line widths "
+                             f"{widths}: {err.decode(errors='replace')[-2000:]}")
+    say("  ok  mirror --config build/chip_smoke.toml --preset narrow --snapshot: 12 lines "
+        "64 wide (the preset's width over the file's 100)")
+    report.update(server={"mesh": after["mesh"], "mesh_collectives": 0, "launches": launches,
+                          "rendered_ticks": ticks, "launches_per_tick": shards,
+                          "window_s": took, "tick_latency": lat,
+                          "tick_stages_ms": after["tick_stages_ms"],
+                          "unsharded_tick_stages_ms": LIVE_STAGES.get("live_server")})
+    say(f"  phase 19 took {time.monotonic() - t19:.1f} s")
+    # a fresh process: its counts ran from 0, and only the server launched
+    return {server.RENDER_GROUP_KERNEL.name: after["render_launches"]}, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2070,8 +2336,9 @@ def main() -> int:
     t17 = time.monotonic()
     paths.update(phase17_webrtc_discovery())
     say(f"  phase 17 took {time.monotonic() - t17:.1f} s")
+    paths["server_mesh"], mesh = phase19_mesh(dev, stack)
     report = {"card": CARD, "kernels": [], "rain": matrix, "render_file": render_file,
-              "web": web_check}
+              "web": web_check, "mesh": mesh}
     for k in KERNELS:
         entry = {"name": k.name, "route": "cuda", "source": k.source,
                  "replaces": k.replaces, "launches": paths[MAIN_PATH[k.name]][k.name],

@@ -96,10 +96,10 @@ def _plain(grp: server.RenderGroup, stack: torch.Tensor) -> cells.RecordDict:
                                  m.comp_mask, mode=r.mode, dst_h=r.dst_h_px, dst_w=r.dst_w)
 
 
-def _groups(device, spec) -> list[server.RenderGroup]:
+def _groups(device, spec, mesh=None) -> list[server.RenderGroup]:
     sizes = [(80, 60), (64, 48), (50, 70)]
     return [server.RenderGroup(sizes, w, h, TerminalCapabilities(color, mode), names,
-                               palette=palette, device=device)
+                               palette=palette, device=device, mesh=mesh)
             for w, h, color, mode, names, palette in spec]
 
 
@@ -130,6 +130,30 @@ def test_render_groups_one_launch_matches_plain(cuda):
     for rec, h in zip(got, host):
         for k in rec:
             assert np.array_equal(h[k], rec[k].cpu().numpy()), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clients, space", [(2, 1), (4, 1), (4, 2), (1, 3)])
+def test_render_groups_sharded_on_one_card_matches_plain(cuda, clients, space):
+    """A forced mesh on the card (parallel/mesh.py): one K3 launch per
+    shard with a part, each shard's descriptors from its first pixel row
+    into a record buffer of its own; the gathered records equal the plain
+    render, over two ticks of a moving rainbow."""
+    from asciichat_tpu_torch.parallel import mesh as meshlib
+
+    stack = _frames(3, 70, 80, seed=9, device=cuda)
+    mesh = meshlib.make_mesh(clients * space, space, [cuda] * (clients * space))
+    groups = _groups(cuda, THREE, mesh)
+    arena = server.MeshArena(mesh)
+    shards = len({shard.index for g in groups for shard, _ in g.shard_jobs})
+    for time_s in (0.4, 2.0):
+        before = server.RENDER_GROUP_KERNEL.launches
+        hosts = arena.fetch(server.render_groups(stack, groups, time_s, arena))
+        assert server.RENDER_GROUP_KERNEL.launches == before + shards
+        for g, host in zip(groups, hosts):
+            want = _plain(g, stack)
+            for k in want:
+                assert np.array_equal(host[k], want[k].cpu().numpy()), (time_s, g.render.mode, k)
 
 
 @pytest.mark.gpu

@@ -172,10 +172,22 @@ def test_mirror_matrix_not_ported():
     assert out == oracle.ascii_convert_with_capabilities(seen[0], 40, 12, caps)
 
 
-@pytest.mark.parametrize("argv", [["bench"], ["completions", "bash"]])
+@pytest.mark.parametrize("argv", [["bench"]])
 def test_unported_modes_exit_nonzero(argv, capsys):
     assert tmain.main(argv) == tmain.NOT_PORTED
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_completions_ported_since_run(capsys, monkeypatch):
+    """``completions bash``, which ``test_unported_modes_exit_nonzero``
+    turned away, prints the JAX package's script
+    (tests/test_torch_cli.py holds every shell and the man page)."""
+    from asciichat_tpu.utils import options as jopt
+
+    monkeypatch.setattr(sys, "excepthook", sys.excepthook)  # main() installs its own
+    assert tmain.main(["completions", "bash"]) == 0
+    assert capsys.readouterr().out == \
+        jopt.generate_completions(jopt.default_registry(), "bash") + "\n"
 
 
 @pytest.mark.parametrize("mode", ["discovery", "client-webrtc", "discovery-service"])

@@ -9,6 +9,12 @@ different geometry, family and receiver count (1 to 13, rainbow among
 them), with and without tiles that split a cell row; a group of 20
 receivers (two descriptors); 18 groups (two launches); odd pixel heights
 for the half-block families; layouts whose composite has background bars.
+The sharded render (parallel/mesh.py): each shard's launch from
+models/server.shard_launches, whose descriptors start at the shard's first
+pixel row of the word map and write a record buffer of the shard's own,
+over 1-D and 2-D meshes, gathered by MeshArena.fetch into the unsharded
+layout against the plain render; and the multi-card bookkeeping on two
+device keys of the CPU (a stack copy, an arena and launches per device).
 It checks the kernel's logic (tiles, the group lookup, each thread's
 cp.async copies of the tile's map words and the wait for them, the one
 gather per tile into shared memory, the filters, the byte stores from
@@ -27,6 +33,7 @@ import torch
 
 from asciichat_tpu_torch.models import server
 from asciichat_tpu_torch.ops import cells, compositor, filters
+from asciichat_tpu_torch.parallel import mesh as meshlib
 from asciichat_tpu_torch.render import palette as pal
 from asciichat_tpu_torch.runtime import kernel_build
 
@@ -153,6 +160,99 @@ def test_emulated_groups_past_one_launch(emulated):
     groups = [Group(m, 5 + i % 4, 10 + 3 * i, [filters.FILTER_NAMES[i % 13]])
               for i, m in enumerate(modes[:18])]
     _check(emulated, groups, sm_count=4, seed=6, launches=2)
+
+
+SHARD_CASES = {  # built when a test runs
+    "odd_half": lambda: [Group("halfblock_truecolor", 23, 37, RECEIVERS),
+                         Group("halfblock_16", 13, 25, ["cyan", "none", "rainbow", "pink", "black"],
+                               term=(25, 7))],
+    "families": lambda: [Group(m, 21 if cells.mode_family(m) in cells.HALFBLOCK_FAMILIES else 11,
+                               19, ["none", "rainbow", "green"]) for m in cells.MODES],
+    "wide": lambda: [Group("halfblock_256", 9, 26, (filters.FILTER_NAMES * 2)[:20])],
+}
+SHARD_MESHES = [(2, 1), (4, 1), (8, 1), (4, 2), (8, 2), (1, 3)]  # (clients, space)
+
+
+@pytest.mark.parametrize("clients, space", SHARD_MESHES)
+@pytest.mark.parametrize("case", list(SHARD_CASES))
+def test_emulated_row_shards_match_plain(emulated, case, clients, space):
+    """One launch per shard (two descriptors for a shard that holds more
+    than 16 receivers of a group), each shard's records in its own buffer,
+    gathered into the unsharded layout: equal to the plain render of each
+    group."""
+    groups = SHARD_CASES[case]()
+    frames = _stack(7)
+    mesh = meshlib.make_mesh(clients * space, space, [CPU] * (clients * space))
+    jobs = [g.job(1.3) for g in groups]
+    arena = server.MeshArena(mesh)
+    records, launches = server.shard_launches(
+        {CPU: frames}, [(j, server.split_job(j, mesh)) for j in jobs], arena, lambda d: 8)
+    noise = np.random.default_rng(8)
+    for part in records:
+        for _, rec in part.parts:
+            for t in rec.values():
+                t.copy_(torch.from_numpy(noise.integers(0, 256, t.shape, dtype=np.uint8)))
+    shards = {shard.index for part in records for shard, _ in part.parts}
+    assert len(launches) == len(shards)
+    if case == "wide" and clients == 1:
+        assert [len(table) for _, table in launches] == [2] * len(shards)
+    for stack, table in launches:
+        assert stack is frames
+        assert lib_ok(emulated, frames, table)
+    for i, (g, host) in enumerate(zip(groups, arena.fetch(records))):
+        want = g.plain(frames, 1.3)
+        assert sorted(host) == sorted(want)
+        for k in want:
+            assert np.array_equal(host[k], want[k].numpy()), f"group {i} ({g.mode}) {k}"
+
+
+CPU0 = torch.device("cpu", 0)  # a second device key on the CPU
+
+
+@pytest.mark.parametrize("clients, space", [(2, 1), (1, 2), (2, 2)])
+def test_emulated_row_shards_on_distinct_devices(emulated, clients, space):
+    """The host side of a mesh over several cards, with ``cpu`` and
+    ``cpu:0`` taking turns over the grid in place of two cards: replicate
+    gives the second device a copy of the stack, each device's parts are
+    laid out in an arena of its own, each launch reads the stack of its
+    shards' device and writes only into that device's arena, and the
+    records that MeshArena.fetch gathers from both arenas equal the plain
+    render of each group."""
+    groups = SHARD_CASES["odd_half"]()
+    frames = _stack(9)
+    n = clients * space
+    mesh = meshlib.make_mesh(n, space, [CPU, CPU0] * n)
+    assert mesh.device_list() == [CPU, CPU0]
+    stacks = meshlib.replicate(frames, mesh)
+    assert list(stacks) == [CPU, CPU0] and stacks[CPU] is frames
+    assert stacks[CPU0].data_ptr() != frames.data_ptr() and torch.equal(stacks[CPU0], frames)
+    jobs = [g.job(1.3) for g in groups]
+    arena = server.MeshArena(mesh)
+    records, launches = server.shard_launches(
+        stacks, [(j, server.split_job(j, mesh)) for j in jobs], arena, lambda d: 8)
+    noise = np.random.default_rng(10)
+    for part in records:
+        for _, rec in part.parts:
+            for t in rec.values():
+                t.copy_(torch.from_numpy(noise.integers(0, 256, t.shape, dtype=np.uint8)))
+    device_of = {id(t): d for d, t in stacks.items()}
+    spans = {d: (a._dev.data_ptr(), a._dev.data_ptr() + a._dev.numel())
+             for d, a in arena.arenas.items()}
+    assert {device_of[id(stack)] for stack, _ in launches} == {CPU, CPU0}
+    for stack, table in launches:
+        lo, hi = spans[device_of[id(stack)]]
+        outs = table[:, 1:4]
+        assert ((outs == 0) | ((outs >= lo) & (outs < hi))).all()
+        assert lib_ok(emulated, stack, table)
+    for i, (g, host) in enumerate(zip(groups, arena.fetch(records))):
+        want = g.plain(frames, 1.3)
+        assert sorted(host) == sorted(want)
+        for k in want:
+            assert np.array_equal(host[k], want[k].numpy()), f"group {i} ({g.mode}) {k}"
+
+
+def lib_ok(lib, frames, table) -> bool:
+    return lib.ac_render_groups(frames.data_ptr(), table.ctypes.data, len(table), None) == 0
 
 
 def test_host_limits_match_the_kernel():

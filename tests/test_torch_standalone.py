@@ -10,8 +10,12 @@ command-line client (with its audio capture chain) over TCP and WebSocket,
 itself run with ``asciichat_tpu`` blocked. With ``cryptography`` blocked
 too, ``server --ws-port`` starts, serves the page and a WebSocket client and
 answers ``POST /webrtc/offer`` as the JAX server does without signaling,
-and ``client --webrtc`` exits 1 with a one-line message. The raw clients and the oracle here are the JAX
-package's: the tests are not the port."""
+and ``client --webrtc`` exits 1 with a one-line message. ``completions``
+prints the JAX package's script, and the server under a forced mesh
+(``ASCIICHAT_FORCE_MESH``, ``ASCIICHAT_MESH_SPACE``) serves oracle frames
+and answers ``query``, each process with ``asciichat_tpu`` blocked. The raw
+clients and the oracle here are the JAX package's: the tests are not the
+port."""
 
 import ast
 import asyncio
@@ -104,7 +108,7 @@ assert "asciichat_tpu_torch.ops.rain" in names, names
 slice_modules = {"asciichat_tpu_torch." + m for m in (
     "net.stun", "net.sdp", "net.sctp", "net.dtls", "net.webrtc", "net.datachannel",
     "net.rate_limit", "net.discovery", "net.consensus", "net.upnp", "apps.acds",
-    "apps.discovery")}
+    "apps.discovery", "utils.dumps", "apps.query", "parallel.mesh")}
 assert slice_modules <= set(names), slice_modules - set(names)
 for name in names:
     importlib.import_module(name)
@@ -387,3 +391,62 @@ def test_client_webrtc_without_cryptography_says_so():
     assert out.returncode == 1, out.stderr[-3000:]
     assert out.stderr.count("\n") == 1 and "`cryptography`" in out.stderr, out.stderr
     assert out.stdout == ""
+
+
+# -- the rest of the CLI, and the forced mesh -------------------------------------
+
+
+def test_completions_without_the_jax_package():
+    from asciichat_tpu.utils import options as jopt
+
+    code = BLOCK + ("from asciichat_tpu_torch.apps.main import main\n"
+                    "sys.exit(main(['completions', 'bash']))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout == jopt.generate_completions(jopt.default_registry(), "bash") + "\n"
+
+
+def test_forced_mesh_server_and_query_without_the_jax_package():
+    """``server`` under ``ASCIICHAT_FORCE_MESH=4`` and
+    ``ASCIICHAT_MESH_SPACE=2`` on the CPU serves an oracle frame, its
+    inspector shows the (2, 2) grid and no stack copy, and ``query PID``
+    prints its Python stacks: the server, and ``query``, with
+    ``asciichat_tpu`` blocked."""
+    import json
+    import urllib.request
+
+    from test_torch_cli import query_report
+    from test_torch_mesh import serve_one_oracle_frame
+
+    port, insp = _free_port(), _free_port()
+    code = BLOCK + (
+        "import os\n"
+        "os.environ.update(ASCIICHAT_FORCE_MESH='4', ASCIICHAT_MESH_SPACE='2')\n"
+        "from asciichat_tpu_torch.apps.main import main\n"
+        f"sys.exit(main(['server', '--host', '127.0.0.1', '--port', '{port}', "
+        f"'--inspect-port', '{insp}', '--log-level', 'WARNING']))\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        _wait_listening(proc, port)
+        serve_one_oracle_frame(port, synthetic_frame(48, 64, seed=26))
+        _wait_listening(proc, insp)
+        with urllib.request.urlopen(f"http://127.0.0.1:{insp}/state/server", timeout=30) as r:
+            state = json.loads(r.read())
+        assert state["mesh"] == {"clients": 2, "space": 2}, state
+        assert state["mesh_collectives"] == 0 and state["device"] == "cpu", state
+        report = query_report(proc.pid)
+        assert "Thread" in report["pystacks"] and "File " in report["pystacks"], \
+            report["pystacks"][:800]
+        assert proc.poll() is None, "query stopped the server"
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        err = proc.stderr.read().decode(errors="replace")
+        proc.stderr.close()
+    assert "Traceback" not in err, err[-3000:]
