@@ -1,5 +1,4 @@
-"""Command line of the port: the reference CLI's parser and every mode of it
-but ``bench``.
+"""Command line of the port: the reference CLI's parser and every mode of it.
 
     python -m asciichat_tpu_torch.apps.main mirror --test-pattern --snapshot
     python -m asciichat_tpu_torch.apps.main mirror --config c.toml --preset tiny --test-pattern
@@ -11,6 +10,7 @@ but ``bench``.
     python -m asciichat_tpu_torch.apps.main query PID
     python -m asciichat_tpu_torch.apps.main completions bash
     python -m asciichat_tpu_torch.apps.main manpage
+    python -m asciichat_tpu_torch.apps.main bench
 
 :func:`build_parser` is built from the port's options registry
 (``utils/options.py``) as ``asciichat_tpu/apps/main.py`` builds it, so flags,
@@ -19,11 +19,13 @@ does what the JAX package's ``main()`` does: a ``--config`` TOML file (and its
 ``--preset``) fills the options the user did not type (:func:`apply_config`);
 SIGUSR1 dumps every thread's stack into the per-pid file that ``query``
 reads (``utils/dumps.py``), SIGUSR2 prints a gc report, and an unhandled
-exception writes a panic report (:func:`install_handlers`). ``bench`` exits
-non-zero with "not yet ported": the repository's ``bench.py`` drives the
-JAX package. ``client --webrtc``, ``discovery-service`` and ``discovery``
-need the ``cryptography`` package (X25519 and Ed25519 keys): without it they
-exit 1 with one line that says so. The device is ``ASCIICHAT_TORCH_DEVICE``
+exception writes a panic report (:func:`install_handlers`). ``bench`` runs
+the port's benchmark (``apps/bench.py``: one JSON line on stdout;
+``ASCIICHAT_BENCH_SMOKE=1`` for tiny shapes); the repository's root
+``bench.py`` drives the JAX package. ``client --webrtc``,
+``discovery-service`` and ``discovery`` need the ``cryptography`` package
+(X25519 and Ed25519 keys): without it they exit 1 with one line that says
+so. The device is ``ASCIICHAT_TORCH_DEVICE``
 (``cuda`` by default, ``cpu`` for the plain PyTorch versions); a client uses
 it only for its audio capture chain. ``ASCIICHAT_FORCE_MESH`` and
 ``ASCIICHAT_MESH_SPACE`` shard the server's render (``parallel/mesh.py``)
@@ -41,15 +43,6 @@ from asciichat_tpu_torch.render.types import RenderMode
 from asciichat_tpu_torch.utils import logsys
 from asciichat_tpu_torch.utils.errors import AsciiChatError
 from asciichat_tpu_torch.utils.options import Mode, apply_to_parser, default_registry
-
-NOT_PORTED = 2  # exit code of a mode or option the port does not have yet
-
-
-def _not_ported(what: str) -> int:
-    print(f"asciichat_tpu_torch: {what} is not yet ported (ROADMAP.md Queue 1)",
-          file=sys.stderr)
-    return NOT_PORTED
-
 
 def _update_banner() -> None:
     """The opt-in update check (update_checker.c + update_banner.c): a newer
@@ -107,6 +100,12 @@ def cmd_mirror(args) -> int:
         return 0
     session.run(max_frames=args.max_frames)
     return 0
+
+
+def cmd_bench(args) -> int:
+    from asciichat_tpu_torch.apps import bench
+
+    return bench.main()
 
 
 def cmd_server(args) -> int:
@@ -231,7 +230,8 @@ def build_parser() -> argparse.ArgumentParser:
     apply_to_parser(reg, dc, Mode.DISCOVERY)
     dc.set_defaults(fn=cmd_discovery)
 
-    sub.add_parser("bench", help="run the throughput benchmark")
+    b = sub.add_parser("bench", help="run the throughput benchmark")
+    b.set_defaults(fn=cmd_bench)
 
     st = sub.add_parser("strings", help="session word-string tool")
     st.add_argument("--count", type=int, default=1)
@@ -344,9 +344,6 @@ def install_handlers() -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    fn = getattr(args, "fn", None)
-    if fn is None:
-        return _not_ported(f"mode {args.mode!r}")
     if getattr(args, "config", None):
         apply_config(args, argv if argv is not None else sys.argv[1:])
     install_handlers()
@@ -359,7 +356,7 @@ def main(argv=None) -> int:
     if getattr(args, "update_check", False):
         _update_banner()
     try:
-        return fn(args)
+        return args.fn(args)
     except AsciiChatError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

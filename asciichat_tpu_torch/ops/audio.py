@@ -1,10 +1,12 @@
 """The server's exclude-self audio mixer and the client's capture chain.
 
-Counterpart of ``asciichat_tpu/ops/audio.py`` (:35-589 but for the tail of
-lowpass, resampler and level analysis; that module imports JAX at the top, so
-the constants, ``MixerParams`` and the scalar helpers are copied here, and the
-tests hold each equal to its original). Neither kernel wrapper falls back to
-the plain version, nor the plain version to the kernel:
+Counterpart of ``asciichat_tpu/ops/audio.py`` (that module imports JAX at
+the top, so the constants, ``MixerParams`` and the scalar helpers are copied
+here, and the tests hold each equal to its original). The library tail
+(:func:`lowpass`, :func:`resample_linear`, :func:`analyze_levels`) is plain
+PyTorch on the buffer's device: nothing in the port calls it. Neither
+kernel wrapper falls back to the plain version, nor the plain version to
+the kernel:
 
 - the mixer: ducking, crowd gain, compression and soft clip for every
   listener in one call per 10 ms tick. On a CUDA tensor :func:`mixer_process`
@@ -342,6 +344,50 @@ def _f32(value, device) -> torch.Tensor:
     """A Python float rounded once to a float32 scalar, as JAX's weak typing
     rounds it."""
     return torch.tensor(float(value), dtype=torch.float32, device=device)
+
+
+def lowpass(buf, prev_out, alpha):
+    """y[n] = alpha*x[n] + (1-alpha)*y[n-1] (mixer.c:1004-1013) over buf
+    [..., N], a loop over the samples with alpha in float32 -> (out,
+    prev_out)."""
+    a = _f32(alpha, buf.device)
+    keep = 1.0 - a
+    pout = prev_out
+    outs = []
+    for x in torch.unbind(buf, dim=-1):
+        pout = a * x + keep * pout
+        outs.append(pout)
+    return (torch.stack(outs, dim=-1) if outs else buf.clone()), pout
+
+
+def lowpass_alpha(cutoff_hz: float, sample_rate: float = SAMPLE_RATE) -> float:
+    dt = 1.0 / sample_rate
+    rc = 1.0 / (2.0 * math.pi * cutoff_hz)
+    return dt / (rc + dt)
+
+
+def resample_linear(buf: torch.Tensor, out_len: int) -> torch.Tensor:
+    """[..., N] -> [..., out_len] linear interpolation. Positions are
+    ``i * (N / out_len)`` in float32 with an end clamp, as the C resampler
+    strides (audio.c:578-586), not endpoint-matched."""
+    n = buf.shape[-1]
+    ratio = n / max(out_len, 1)
+    pos = torch.arange(out_len, dtype=torch.float32, device=buf.device) * ratio
+    i0 = pos.to(torch.int32).clamp(0, n - 1)
+    i1 = (i0 + 1).clamp(0, n - 1)
+    frac = pos - i0.to(torch.float32)
+    return (buf.index_select(-1, i0.long()) * (1.0 - frac)
+            + buf.index_select(-1, i1.long()) * frac)
+
+
+def analyze_levels(buf: torch.Tensor) -> dict[str, torch.Tensor]:
+    """[..., N] -> {'rms', 'peak', 'rms_db', 'peak_db'} per leading batch
+    dims (lib/audio/analysis.c). The mean multiplies by float32(1/N), as
+    ``jnp.mean`` does."""
+    rms = torch.sqrt((buf * buf).sum(-1) * _f32(1.0 / buf.shape[-1], buf.device))
+    peak = buf.abs().amax(-1)
+    return {"rms": rms, "peak": peak, "rms_db": linear_to_db(rms),
+            "peak_db": linear_to_db(peak)}
 
 
 def noise_gate_reference(buf, envelope, gate_open, threshold: float = 0.01,

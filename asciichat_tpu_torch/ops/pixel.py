@@ -1,6 +1,6 @@
 """Per-pixel render ops in plain PyTorch: resize, luma, quantizers, glyph keys.
 
-Counterpart of ``asciichat_tpu/ops/pixel.py:41-140``. These are the plain
+Counterpart of ``asciichat_tpu/ops/pixel.py``. These are the plain
 versions of the kernels' math (``csrc/cells_math.cuh``): the CPU path runs
 them, and the tests and ``chip_smoke.py`` hold the kernels against them.
 Every op widens uint8 to int32 before arithmetic, as the reference does:
@@ -86,3 +86,43 @@ def halfblock_split(frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if frames.shape[-3] % 2:
         frames = torch.cat([frames, frames[..., -1:, :, :]], dim=-3)
     return frames[..., 0::2, :, :], frames[..., 1::2, :, :]
+
+
+def flip(frames: torch.Tensor, flip_x: bool = False, flip_y: bool = False) -> torch.Tensor:
+    """Horizontal/vertical mirror (session display steps, display.c:549-592)."""
+    if flip_x:
+        frames = torch.flip(frames, dims=(-2,))
+    if flip_y:
+        frames = torch.flip(frames, dims=(-3,))
+    return frames
+
+
+def quantize_color_levels(frames: torch.Tensor, levels: int) -> torch.Tensor:
+    """quantize_color (foreground.c:141-156): floor to 256/levels steps.
+    Levels outside 1..256 raise: above 256 the step would be 0."""
+    if not 0 < levels <= 256:
+        raise ValueError(f"levels must be in 1..256, got {levels}")
+    step = 256 // levels
+    px = frames.to(torch.int32)
+    return ((px // step) * step).to(torch.uint8)
+
+
+# Bayer 4x4 matrix flattened the way the reference's NEON path consumes it:
+# a 16-entry table indexed by the ROW-RELATIVE column & 15 (neon/common.c:371
+# with pixel_offset = x from the row loop, neon/color.c), not a 2-D spatial
+# lookup.
+_BAYER16 = np.array([0, 8, 2, 10, 12, 4, 14, 6, 3, 11, 1, 9, 15, 7, 13, 5],
+                    np.int32)
+
+
+def ordered_dither(rgb: torch.Tensor, strength: int = 0) -> torch.Tensor:
+    """Ordered (Bayer) dithering before 256-color quantization, the integer
+    semantics of apply_ordered_dither (neon/common.c:369-397): channel c at
+    column x gets saturating += (bayer[(x+c)&15] * strength) >> 4, the same
+    for every row. The reference calls it with strength=0 (common.c:400-402)."""
+    if strength == 0:
+        return rgb
+    w = rgb.shape[-2]
+    pos = np.arange(w, dtype=np.int32)[:, None] + np.arange(3, dtype=np.int32)
+    dither = torch.from_numpy((_BAYER16[pos & 15] * strength) >> 4).to(rgb.device)  # [W, 3]
+    return (rgb.to(torch.int32) + dither).clamp(0, 255).to(torch.uint8)

@@ -46,7 +46,10 @@ NVCC_FLAGS = (*NVCC_ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 NATIVE_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 # libraries a native source links against; they follow the source
-NATIVE_LINK = {"avshim": ("-lavcodec", "-lavformat", "-lavutil", "-lswscale")}
+NATIVE_LINK = {"avshim": ("-lavcodec", "-lavformat", "-lavutil", "-lswscale"),
+               # Qt's runtime libraries by exact name: no Qt development package
+               "qjs": ("-L/usr/lib/x86_64-linux-gnu", "-l:libQt5Qml.so.5",
+                       "-l:libQt5Core.so.5")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +65,7 @@ ENTRY_POINTS: dict[str, list] = {
     "ac_mixer": [_P, _P, _I, _I64, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                  _P, _P],
     "ac_capture_chain": [_P, _P, _I, _I, _I, _I, *[_P] * 7, _P, _P, *[_P] * 7, _P],
+    "ac_device_emit": [_P, _P, _P, _I, _I, _I, _P, _I64, _P, _P],
 }
 
 
@@ -106,6 +110,12 @@ def nvcc_path() -> str:
                        "CUDA toolkit is installed")
 
 
+def library_digest() -> str:
+    """The digest of the kernel library's sources and flags: its file name
+    carries it, so equal digests mean the same kernels."""
+    return _digest(_sources("*.cu") + _sources("*.cuh"), NVCC_FLAGS)
+
+
 def build_cuda(verbose: bool = False) -> tuple[Path, str]:
     """Build libkernels if no library for the current sources exists: one
     nvcc per source, all at once (the build takes as long as its slowest
@@ -113,13 +123,12 @@ def build_cuda(verbose: bool = False) -> tuple[Path, str]:
     output); ``verbose`` adds ``-Xptxas -v`` (each kernel's registers, shared
     memory and spills) to a fresh build."""
     units = _sources("*.cu")
-    digest = _digest(units + _sources("*.cuh"), NVCC_FLAGS)
-    out = BUILD_DIR / f"libkernels-{digest}.so"
+    out = BUILD_DIR / f"libkernels-{library_digest()}.so"
     if out.exists():
         return out, ""
     nvcc = nvcc_path()
     flags = [f for f in NVCC_FLAGS if f != "-shared"] + (["-Xptxas", "-v"] if verbose else [])
-    objs = BUILD_DIR / f"objects-{digest}-{os.getpid()}"
+    objs = BUILD_DIR / f"objects-{out.stem}-{os.getpid()}"
     objs.mkdir(parents=True, exist_ok=True)
     try:
         jobs = [(unit, subprocess.Popen(

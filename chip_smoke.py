@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render path, audio mixer, live server and client,
-its WebRTC and discovery modes, its sharded serving and the rest of its CLI,
-once on one NVIDIA card and check them.
+its WebRTC and discovery modes, its sharded serving, the rest of its CLI,
+its device ANSI emission and its ``bench`` mode once on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -34,6 +35,15 @@ so the exit code is non-zero:
    card's overlaid frame equal the oracle's; ``MirrorSession(matrix=True)``
    and the CLI's ``--matrix --snapshot`` on the card; the overlay timed per
    1080p frame;
+6c. device ANSI emission (``ops/emit.py``): K6 against its plain version
+   (the whole worst-case buffer and the lengths, bit for bit) and every
+   frame against ``oracle.render_truecolor_fg``, at 128 x 57x203
+   truecolor_fg records: K2's of the bench's 1080p gradient, and random
+   colours; ``emit_frames_device`` once, from a reset, for K6's launches;
+   K6 timed eager, device only and plain; and the split of what it would
+   replace: the records' fetch and the host emitter (one thread, then the
+   emitter's default count) against K6 and the fetch of its bytes and
+   lengths (host clock, the same bytes either way);
 7. server: ``RenderGroup.step`` and ``fetch`` for 100 ticks, every
    receiver's bytes against the oracle;
 8. the launch counts of phase 6 (K1, K2) and phase 7 (K3), each path's
@@ -122,21 +132,28 @@ so the exit code is non-zero:
     that server prints its Python stacks (the SIGUSR1 channel); ``mirror
     --config build/chip_smoke.toml --preset narrow --snapshot`` prints
     frames the preset's width wide (run beside the server);
+20. ``python -m asciichat_tpu_torch.apps.main bench`` in a subprocess on the
+    card (``apps/bench.py``; its stderr goes to
+    ``build/chip_smoke_bench.err``): exit 0, one JSON line with every key,
+    no ``smoke``, the byte gate passed, ``server_tick_rate`` > 0 and the
+    kernel fingerprint of this library; the line is printed, and the report
+    carries it as ``bench``;
 18. the kernels, their launches on each path, their times against the
     plain versions and their bounds, as one JSON line, printed after phase
-    19. A kernel's
+    20. A kernel's
     ``launches`` is the count on its user-facing path: the mirror (phase 6)
     for K1 and K2, the live server (phase 11) for K3 and K4, the live client
-    (phase 13) for K5;
+    (phase 13) for K5, ``emit_frames_device`` (phase 6c) for K6, which no
+    serving path runs;
     ``launches_by_path`` holds every path's own count (``render_file``:
     phase 15's renders on the card; ``webrtc_server`` and
     ``discovery_host``: phase 17's, each a fresh process; ``server_mesh``:
     phase 19's server); the line also carries phase 6b's
-    ``rain``, phase 15's ``render_file`` times, phase 16's ``web`` and phase
-    19's ``mesh``. ``ms`` is the eager
+    ``rain``, phase 15's ``render_file`` times, phase 16's ``web``, phase
+    19's ``mesh`` and phase 20's ``bench``. ``ms`` is the eager
     time (CUDA events around back-to-back wrapper calls), ``device_ms`` the
     device-only time (calls replayed from one CUDA graph); K3's entry adds
-    phase 5b's ``three_groups``. ``bound_ms`` is
+    phase 5b's ``three_groups``, K6's phase 6c's ``split``. ``bound_ms`` is
     the larger of the bytes the function must move (each input byte read
     once, each output byte written once; for a gather, only the pixels it
     samples) over 3.35 TB/s and its operations over 67 TFLOP/s (the float32
@@ -149,7 +166,7 @@ so the exit code is non-zero:
     is one PyTorch call that computes the same function (K1:
     ``frames[:, sy[:, None], sx]``; ``library_device_ms`` its device-only
     time), timed here and used nowhere in the port; no single PyTorch call
-    computes K2, K3, K4 or K5, so theirs is null.
+    computes K2, K3, K4, K5 or K6, so theirs is null.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Records are compared exactly (tolerance 0: every record is uint8); the
@@ -180,6 +197,7 @@ import numpy as np
 import torch
 
 from asciichat_tpu_torch import web
+from asciichat_tpu_torch.apps import bench as port_bench
 from asciichat_tpu_torch.apps.client import AsciiChatClient
 from asciichat_tpu_torch.models import renderfile, server
 from asciichat_tpu_torch.models.mirror import MirrorSession
@@ -187,7 +205,7 @@ from asciichat_tpu_torch.models.session import DisplaySink
 from asciichat_tpu_torch.net import packet as pkt
 from asciichat_tpu_torch.net import protocol as proto
 from asciichat_tpu_torch.net.transport import connect_tcp
-from asciichat_tpu_torch.ops import audio, cells, compositor, filters, pixel, rain, resize
+from asciichat_tpu_torch.ops import audio, cells, compositor, emit, filters, pixel, rain, resize
 from asciichat_tpu_torch.parallel import mesh as meshlib
 from asciichat_tpu_torch.render import emitter, oracle, palette
 from asciichat_tpu_torch.render.pipeline import AsciiRenderer, plan_render
@@ -251,12 +269,22 @@ MESH_TICKS = 10
 MESH_FORCE = 4  # the live server's ASCIICHAT_FORCE_MESH
 MESH_WINDOW_S = 2.0  # its steady window
 
+EMIT_SPLIT_ROUNDS = 20  # phase 6c's host-clock rounds of the emission paths, in turns
+BENCH_LIMIT_S = 600  # phase 20's bench subprocess (about 20 s on one H100)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "eager_convert_fps",
+              "emit_under_concurrency_fps", "end_to_end_onbox_fps",
+              "end_to_end_pcie_projection_fps", "host_emit_fps", "host_emit_fps_mt",
+              "host_emit_mt_threads", "pipeline_convert_fps", "pipeline_d2h_fps",
+              "pipeline_d2h_mbps", "server_tick_rate", "kernel_fingerprint",
+              "datachannel_fps", "versions"}
+
 KERNELS = (resize.RESIZE_KERNEL, cells.CELL_RECORDS_KERNEL,
-           server.RENDER_GROUP_KERNEL, audio.MIXER_KERNEL, audio.CAPTURE_KERNEL)
+           server.RENDER_GROUP_KERNEL, audio.MIXER_KERNEL, audio.CAPTURE_KERNEL,
+           emit.EMIT_KERNEL)
 # the path whose launches a kernel's `launches` reports (see phase 18)
 MAIN_PATH = {"resize_nn": "mirror", "cell_records": "mirror",
              "render_group": "live_server", "mixer": "live_server",
-             "capture_chain": "live_client"}
+             "capture_chain": "live_client", "device_emit": "device_emit"}
 
 CARD = ""  # "name, power limit" of the card, set in phase 1
 LIVE_STAGES: dict[str, dict] = {}  # live server -> its inspector's tick_stages_ms
@@ -783,6 +811,129 @@ def phase6b_matrix(dev, frames: torch.Tensor) -> dict:
         f"{field_ms:.4f} ms); plain CPU {plain:.3f} ms [{CARD}]")
     return {"overlay_ms": ms, "field_ms": field_ms, "plain_cpu_ms": plain,
             "max_field_err": field_err, "max_frame_err": frame_err, "wrap_share": share}
+
+
+def emission_records(dev) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
+    """Phase 6c's records at the mirror's cell (128 x 57x203 truecolor_fg):
+    K2's of the bench's 1080p gradient, and random colours with their luma."""
+    plan = plan_render(SRC_W, SRC_H, TERM_W, TERM_H, FG_TRUECOLOR)
+    frames = port_bench.make_frames(BATCH, SRC_H, SRC_W, dev)
+    recs = cells.render_cells(frames, cells.ramp_for_palette(palette.DEFAULT_PALETTE),
+                              dst_h=plan.dst_h_px, dst_w=plan.dst_w, mode=plan.mode)
+    del frames
+    rng = np.random.default_rng(31)
+    rgb = torch.from_numpy(rng.integers(0, 256, (BATCH, plan.dst_h_px, plan.dst_w, 3),
+                                        dtype=np.uint8)).to(dev)
+    return {"gradient": (recs["rgb"], recs["luma"]),
+            "random": (rgb, pixel.luminance(rgb).to(torch.uint8))}
+
+
+def in_turns(fns: dict, rounds: int) -> dict[str, float]:
+    """Median host-clock milliseconds of each callable, run in turns: one
+    call of each a round, after one warm-up round, so that a slow spell of
+    the host falls on all of them alike."""
+    for fn in fns.values():
+        fn()
+    samples = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            samples[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: float(np.median(v)) for name, v in samples.items()}
+
+
+def emission_split(rgb: torch.Tensor, luma: torch.Tensor, tbl: torch.Tensor) -> dict:
+    """Host-clock milliseconds per batch (medians, in turns) of what K6
+    would replace and of K6: the records' fetch and the host emitter (one
+    thread, then the emitter's default count), against K6 and the fetch of
+    its bytes and lengths, each path ending with its bytes on the host; the
+    two give the same bytes."""
+    b, h, w, _ = rgb.shape
+    recs = {"rgb": rgb, "luma": luma}
+    staging = cells.HostStaging()
+    data_host = torch.empty((b, emit.worst_bytes(h, w)), dtype=torch.uint8, pin_memory=True)
+    lens_host = torch.empty((b,), dtype=torch.int32, pin_memory=True)
+    threads = emitter._DEFAULT_THREADS
+
+    def fetch_records():
+        return cells.records_to_numpy(recs, staging)
+
+    def host_emit(host, nthreads):
+        return emitter.emit_frames(host, "truecolor_fg", palette.DEFAULT_PALETTE,
+                                   nthreads=nthreads, copy=False)
+
+    def fetch_bytes(data, lengths):
+        data_host.copy_(data, non_blocking=True)
+        lens_host.copy_(lengths, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+
+    def device_path():
+        fetch_bytes(*emit.emit_truecolor_fg(rgb, luma, tbl))
+
+    host = fetch_records()
+    outs = host_emit(host, threads)
+    device_path()
+    lens = lens_host.numpy()
+    for i in range(b):
+        if bytes(outs[i]) != data_host.numpy()[i, :lens[i]].tobytes():
+            raise AssertionError(f"K6 frame {i} differs from the host emitter's")
+    data, lengths = emit.emit_truecolor_fg(rgb, luma, tbl)
+    split = {"frames": b, "threads": threads, **in_turns({
+        "fetch_records_ms": fetch_records,
+        "emit_1t_ms": lambda: host_emit(host, 1),
+        "emit_mt_ms": lambda: host_emit(host, threads),
+        "records_path_1t_ms": lambda: host_emit(fetch_records(), 1),
+        "records_path_mt_ms": lambda: host_emit(fetch_records(), threads),
+        "fetch_bytes_ms": lambda: fetch_bytes(data, lengths),
+        "k6_path_ms": device_path,
+    }, EMIT_SPLIT_ROUNDS), "records_bytes": nbytes(rgb, luma), "k6_bytes": nbytes(data, lengths)}
+    say(f"  split per batch of {b} (host clock, ms): records fetch "
+        f"{split['fetch_records_ms']:.4f} + emit 1 thread {split['emit_1t_ms']:.4f} "
+        f"(together {split['records_path_1t_ms']:.4f}), {threads} threads "
+        f"{split['emit_mt_ms']:.4f} (together {split['records_path_mt_ms']:.4f}); "
+        f"K6 + bytes fetch {split['k6_path_ms']:.4f} (fetch alone "
+        f"{split['fetch_bytes_ms']:.4f}) [{CARD}]")
+    return split
+
+
+def phase6c_device_emit(dev, errs: list[int]) -> tuple[dict, dict[str, int]]:
+    say(f"phase 6c: K6 device ANSI emission vs plain and the oracle, {BATCH} frames of "
+        "the mirror's truecolor_fg records")
+    tbl = torch.from_numpy(emit.ascii_glyph_table())
+    sets = emission_records(dev)
+    for name, (rgb, luma) in sets.items():
+        data, lengths = emit.emit_truecolor_fg(rgb, luma, tbl)
+        want, want_len = emit.emit_truecolor_fg_reference(rgb, luma, tbl)
+        torch.cuda.synchronize()
+        if not torch.equal(lengths, want_len):
+            raise AssertionError(f"K6 {name}: lengths differ from the plain version's")
+        check_exact(f"K6 {name} B={BATCH} {tuple(luma.shape[1:])}: whole buffer", data, want,
+                    errs)
+        host, lens, rgb_h = data.cpu().numpy(), lengths.cpu().numpy(), rgb.cpu().numpy()
+        for i in range(BATCH):
+            if host[i, :lens[i]].tobytes() != oracle.render_truecolor_fg(rgb_h[i]):
+                raise AssertionError(f"K6 {name} frame {i} differs from the oracle")
+        say(f"  ok  K6 {name}: {BATCH} frames byte-identical to the oracle "
+            f"({lens.min()}-{lens.max()} bytes)")
+    rgb, luma = sets["gradient"]
+    reset_launches()
+    outs = emit.emit_frames_device({"rgb": rgb, "luma": luma})
+    launches = read_launches()
+    if outs[0] != oracle.render_truecolor_fg(rgb[0].cpu().numpy()):
+        raise AssertionError("emit_frames_device frame 0 differs from the oracle")
+    k = cuda_ms(lambda: emit.emit_truecolor_fg(rgb, luma, tbl))
+    p = cuda_ms(lambda: emit.emit_truecolor_fg_reference(rgb, luma, tbl), iters=5, warmup=1)
+    g = graph_ms(lambda: emit.emit_truecolor_fg(rgb, luma, tbl))
+    timing(f"K6 {BATCH} x {tuple(luma.shape[1:])}", k, p, g)
+    split = emission_split(rgb, luma, tbl)
+    data, lengths = emit.emit_truecolor_fg(rgb, luma, tbl)
+    cell_count = luma.numel()
+    # ops: the SGR compare, three digit counts, the length and the scan a
+    # cell (~20), and one store per byte of the frames
+    ops = 20.0 * cell_count + float(lengths.sum())
+    return (dict(ms=k, plain_ms=p, device_ms=g, library_ms=None, split=split,
+                 **work(nbytes(rgb, luma), nbytes(data, lengths), ops)), launches)
 
 
 def phase7_server(dev) -> None:
@@ -2288,6 +2439,37 @@ def phase19_mesh(dev, stack: torch.Tensor) -> tuple[dict[str, int], dict]:
     return {server.RENDER_GROUP_KERNEL.name: after["render_launches"]}, report
 
 
+def phase20_bench() -> dict:
+    say("phase 20: bench, python -m asciichat_tpu_torch.apps.main bench on the card")
+    env = dict(os.environ)
+    for name in ("ASCIICHAT_BENCH_SMOKE", "ASCIICHAT_TORCH_DEVICE"):
+        env.pop(name, None)
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-m", "asciichat_tpu_torch.apps.main", "bench"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=BENCH_LIMIT_S)
+    took = time.monotonic() - t0
+    (ROOT / "build" / "chip_smoke_bench.err").write_text(r.stderr)
+    if r.returncode != 0:
+        raise RuntimeError(f"bench exited {r.returncode}:\n{r.stderr[-3000:]}")
+    lines = r.stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} lines on stdout, not one")
+    line = json.loads(lines[0])
+    if BENCH_KEYS - set(line) or "smoke" in line:
+        raise AssertionError(f"bench keys: missing {BENCH_KEYS - set(line)}, "
+                             f"smoke {line.get('smoke')}")
+    if "byte-exactness gate: OK" not in r.stderr or not line["value"] > 0:
+        raise AssertionError("bench: the byte gate did not pass")
+    if not line["server_tick_rate"] > 0:
+        raise AssertionError(f"bench: server_tick_rate {line['server_tick_rate']}")
+    if line["kernel_fingerprint"] != kernel_build.library_digest():
+        raise AssertionError("bench: its kernel fingerprint is not this library's")
+    say(f"  bench {lines[0]}")
+    say(f"  phase 20 took {took:.1f} s (stderr in build/chip_smoke_bench.err)")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2311,6 +2493,7 @@ def main() -> int:
     phase6_mirror(dev, frames)
     paths["mirror"] = read_launches()
     matrix = phase6b_matrix(dev, frames)
+    times["device_emit"], paths["device_emit"] = phase6c_device_emit(dev, errs["device_emit"])
     reset_launches()
     phase7_server(dev)
     paths["server_render"] = read_launches()
@@ -2337,8 +2520,9 @@ def main() -> int:
     paths.update(phase17_webrtc_discovery())
     say(f"  phase 17 took {time.monotonic() - t17:.1f} s")
     paths["server_mesh"], mesh = phase19_mesh(dev, stack)
+    bench_line = phase20_bench()
     report = {"card": CARD, "kernels": [], "rain": matrix, "render_file": render_file,
-              "web": web_check, "mesh": mesh}
+              "web": web_check, "mesh": mesh, "bench": bench_line}
     for k in KERNELS:
         entry = {"name": k.name, "route": "cuda", "source": k.source,
                  "replaces": k.replaces, "launches": paths[MAIN_PATH[k.name]][k.name],
@@ -2352,7 +2536,7 @@ def main() -> int:
         t = times[k.name]
         entry.update(ms=t["ms"], plain_ms=t["plain_ms"], device_ms=t["device_ms"],
                      **bounds(t), library_ms=t["library_ms"])
-        for key in ("library_device_ms", "three_groups"):
+        for key in ("library_device_ms", "three_groups", "split"):
             if key in t:
                 entry[key] = t[key]
         report["kernels"].append(entry)

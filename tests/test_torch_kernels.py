@@ -4,8 +4,9 @@ The kernel-vs-plain tests need an NVIDIA card (marker ``gpu``) and skip
 where ``torch.cuda.is_available()`` is false; on the card they run with
 ``python -m pytest tests/test_torch_kernels.py -m gpu``, and
 ``chip_smoke.py`` runs the same comparisons at the main path's full sizes.
-The wrappers' checks and the CPU dispatch run everywhere. Tolerance: exact
-for K1-K3 (uint8 records); K4's float32 mixes are held to rtol=2e-4,
+The wrappers' checks and the CPU dispatch run everywhere; on the card also
+``runtime/device_stream.py``'s stager and pipeline across their streams.
+Tolerance: exact for K1-K3 (uint8 records) and K6 (ANSI bytes, lengths); K4's float32 mixes are held to rtol=2e-4,
 atol=2e-5, the bound tests/test_audio.py holds the JAX mixer to, and so are
 K5's output and weights (its echo estimates come through the blocked
 look-ahead's correction form and its dot products sum in another order; the
@@ -20,7 +21,7 @@ import torch
 from asciichat_tpu.render import palette as pal
 from asciichat_tpu.render.types import ColorLevel, RenderMode, TerminalCapabilities
 from asciichat_tpu_torch.models import server
-from asciichat_tpu_torch.ops import audio, cells, pixel, resize
+from asciichat_tpu_torch.ops import audio, cells, emit, pixel, resize
 from asciichat_tpu_torch.runtime import kernel_build
 from asciichat_tpu_torch.runtime.device import check_tensor, default_device, require_cuda
 
@@ -442,9 +443,9 @@ def test_kernel_entry_points_are_declared():
         kernel_build.Kernel("x", "ac_missing", "csrc/x.cu", "x.py:1")
     sources = {p.name for p in kernel_build.CSRC_DIR.glob("*.cu")}
     assert sources == {"resize.cu", "cell_records.cu", "render_group.cu", "mixer.cu",
-                       "capture.cu"}
+                       "capture.cu", "emit.cu"}
     for k in (resize.RESIZE_KERNEL, cells.CELL_RECORDS_KERNEL, server.RENDER_GROUP_KERNEL,
-              audio.MIXER_KERNEL, audio.CAPTURE_KERNEL):
+              audio.MIXER_KERNEL, audio.CAPTURE_KERNEL, emit.EMIT_KERNEL):
         assert (kernel_build.CSRC_DIR.parent.parent / k.source).is_file()
         text = (kernel_build.CSRC_DIR.parent.parent / k.source).read_text()
         assert f'extern "C" int {k.entry}(' in text
@@ -467,3 +468,84 @@ def test_require_cuda_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         require_cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 10, 13), (2, 1, 9), (2, 6, 1), (3, 57, 203)])
+def test_k6_matches_plain(cuda, shape):
+    rng = np.random.default_rng(sum(shape))
+    rgb = torch.from_numpy(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).to(cuda)
+    rgb[0, :, : shape[2] // 2] = 0  # runs that cross row ends
+    luma = pixel.luminance(rgb).to(torch.uint8)
+    tbl = torch.from_numpy(emit.ascii_glyph_table())
+    before = emit.EMIT_KERNEL.launches
+    got, got_len = emit.emit_truecolor_fg(rgb, luma, tbl)
+    assert emit.EMIT_KERNEL.launches == before + 1
+    want, want_len = emit.emit_truecolor_fg_reference(rgb, luma, tbl)
+    assert torch.equal(got_len, want_len)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_k6_refuses_a_glyph_table_on_the_card(cuda):
+    rgb = torch.zeros((1, 2, 3, 3), dtype=torch.uint8, device=cuda)
+    luma = torch.zeros((1, 2, 3), dtype=torch.uint8, device=cuda)
+    tbl = torch.from_numpy(emit.ascii_glyph_table())
+    with pytest.raises(ValueError, match="glyph_tbl"):
+        emit.emit_truecolor_fg(rgb, luma, tbl.to(cuda))
+    with pytest.raises(ValueError, match="luma"):
+        emit.emit_truecolor_fg(rgb, luma.cpu(), tbl)
+
+
+@pytest.mark.gpu
+def test_frame_stager_on_the_card(cuda):
+    """Each staged batch reaches the caller's stream whole: the caller's
+    stream waits on its copy, and the copy into a slot waits on the work
+    the caller enqueued before the call."""
+    from asciichat_tpu_torch.runtime.device_stream import DeviceFrameStager
+
+    stager = DeviceFrameStager(cuda)
+    batches = [np.full((4, 270, 480, 3), v, np.uint8) for v in (1, 2, 3, 4, 5)]
+    assert stager.stage(batches[0]) is None
+    sums = []
+    for i in range(1, len(batches)):
+        got = stager.stage(batches[i])
+        sums.append(got.to(torch.int64).sum())  # enqueued before the next stage()
+    want = [int(b.astype(np.int64).sum()) for b in batches[:-1]]
+    assert [int(s) for s in sums] == want
+    assert int(stager.latest().to(torch.int64).sum()) == int(batches[-1].astype(np.int64).sum())
+    stager.flush()
+
+
+@pytest.mark.gpu
+def test_overlapped_pipeline_on_the_card(cuda):
+    """Convert, fetch and emit on their own streams and threads: every
+    frame emitted under concurrency is the oracle's."""
+    from asciichat_tpu_torch.render import emitter, oracle
+    from asciichat_tpu_torch.render.pipeline import plan_render
+    from asciichat_tpu_torch.runtime.device_stream import OverlappedRenderPipeline
+
+    caps = TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.FOREGROUND)
+    plan = plan_render(640, 480, 80, 24, caps)
+    frames = _frames(16, 480, 640, seed=9, device=cuda)
+    ramp = cells.ramp_for_palette(pal.DEFAULT_PALETTE)
+    want = [oracle.ascii_convert_with_capabilities(frames[i].cpu().numpy(), 80, 24, caps)
+            for i in range(4)]
+    wrong = []
+
+    def step(f, r):
+        for _ in range(3):
+            recs = cells.render_cells(f, r, dst_h=plan.dst_h_px, dst_w=plan.dst_w,
+                                      mode=plan.mode)
+        return recs
+
+    def emit(host):
+        out = emitter.emit_frames(host, plan.mode, pal.DEFAULT_PALETTE, pad_w=plan.pad_w,
+                                  pad_h=plan.pad_h, nthreads=1, copy=False)
+        wrong.extend(i for i, o in enumerate(out) if bytes(o) != want[i])
+        return out
+
+    pipe = OverlappedRenderPipeline(step, frames, ramp, emit, batch=16, k=3, fetch_slice=4)
+    rates = pipe.run(seconds=1.0, warmup=0.3)
+    assert rates["convert_fps"] > 0 and rates["d2h_fps"] > 0 and rates["emit_fps"] > 0
+    assert pipe.emitted > 0 and wrong == []

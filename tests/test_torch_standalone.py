@@ -87,6 +87,26 @@ def test_no_source_of_the_port_imports_the_jax_package():
     assert not found, found
 
 
+# JAX modules the port replaced rather than copied (ROADMAP.md, "Every module
+# of the JAX package and its counterpart")
+REPLACED = {"ops/pallas_resize.py": "asciichat_tpu_torch/ops/resize.py",
+            "runtime/native_build.py": "asciichat_tpu_torch/runtime/kernel_build.py",
+            "utils/jaxcache.py": "asciichat_tpu_torch/runtime/kernel_build.py"}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each file of asciichat_tpu/ has one in the port at its relative
+    path, or a named replacement that exists."""
+    jax_dir = REPO / "asciichat_tpu"
+    files = sorted(str(f.relative_to(jax_dir)) for f in jax_dir.rglob("*")
+                   if f.is_file() and f.suffix in (".py", ".js", ".html", ".css"))
+    assert len(files) > 90
+    missing = [f for f in files if not (REPO / "asciichat_tpu_torch" / f).is_file()
+               and not (f in REPLACED and (REPO / REPLACED[f]).is_file())]
+    assert not missing, missing
+    assert all(not (REPO / "asciichat_tpu_torch" / f).exists() for f in REPLACED)
+
+
 def test_pil_is_imported_only_by_the_image_decoders():
     tops, lazy = [], {}
     for path in PORT_FILES:
@@ -108,7 +128,9 @@ assert "asciichat_tpu_torch.ops.rain" in names, names
 slice_modules = {"asciichat_tpu_torch." + m for m in (
     "net.stun", "net.sdp", "net.sctp", "net.dtls", "net.webrtc", "net.datachannel",
     "net.rate_limit", "net.discovery", "net.consensus", "net.upnp", "apps.acds",
-    "apps.discovery", "utils.dumps", "apps.query", "parallel.mesh")}
+    "apps.discovery", "utils.dumps", "apps.query", "parallel.mesh", "runtime.device_stream",
+    "apps.bench", "ops.emit", "render.validator", "utils.framefd", "utils.lifecycle",
+    "web.jsrun")}
 assert slice_modules <= set(names), slice_modules - set(names)
 for name in names:
     importlib.import_module(name)

@@ -283,8 +283,11 @@ def test_mdns_announcer_answers_discover(bus):
 
 # -- the browser page ---------------------------------------------------------------
 
+# jsrun.py, the JS engine runner, is the port's own module over
+# kernel_build.native_lib, not a byte copy; tests/test_torch_tail.py runs the
+# JAX package's JS tests through it
 WEB_FILES = sorted(p.name for p in (REPO / "asciichat_tpu_torch" / "web").iterdir()
-                   if p.is_file())
+                   if p.is_file() and p.name != "jsrun.py")
 # the one edit of the copies: app.js's line 17, a comment that named where
 # a checkout kept the reference's tree, names the tree alone
 COPY_EDITS = {"app.js": {16: b" * (the reference's web/ test scripts; "
