@@ -6,6 +6,10 @@ capabilities (src/client/protocol.c), capture task sending <=800x600 RGB
 IMAGE_FRAMEs at a capped rate (src/client/capture.c:30-50), audio capture as
 AUDIO_BATCH, receive loop displaying ASCII_FRAMEs with full reset on first
 frame (src/client/display.c) + keepalive ping (src/client/keepalive.c).
+The terminal writes run on a display thread of their own
+(``models/session.DisplayThread``, latest frame wins), never on the event
+loop: a stdout that lags must not stall the audio, the uplink or the
+keepalive.
 
 The one piece of device work is the audio capture chain (echo canceller,
 highpass, noise gate: ``ops/audio.ClientAudioPipeline``, K5 on the card),
@@ -28,7 +32,7 @@ import time
 import numpy as np
 
 from asciichat_tpu_torch.models.session import (
-    DisplaySink, FrameTransform, Pacer, ReconnectPolicy,
+    DisplaySink, DisplayThread, FrameTransform, Pacer, ReconnectPolicy,
 )
 from asciichat_tpu_torch.net import packet as pkt
 from asciichat_tpu_torch.net import protocol as proto
@@ -55,6 +59,7 @@ class ServerError(Exception):
 CAPTURE_FPS_CAP = 144  # src/client/capture.c:33
 MAX_UPLOAD_W, MAX_UPLOAD_H = 800, 600  # capture.c:41-44
 KEEPALIVE_INTERVAL = 5.0
+DISPLAY_JOIN_S = 2.0  # how long run() waits at its end for the display's last write
 
 
 class AsciiChatClient:
@@ -108,6 +113,7 @@ class AsciiChatClient:
         self.display.set_meta(self.wire_caps.caps.renderer_key(),
                               (self.wire_caps.width, self.wire_caps.height))
         self.reconnect_policy = ReconnectPolicy(enabled=reconnect)
+        self._screen: DisplayThread | None = None  # self.display's thread, during run()
         self.frames_received = 0
         self.frames_sent = 0
         # Audio duplex (src/client/audio.c:276 capture, :531 playback):
@@ -319,12 +325,15 @@ class AsciiChatClient:
             self._last_rx = time.monotonic()
             if ptype == P.ASCII_FRAME:
                 frame, _w, _h, _flags = pkt.unpack_ascii_frame(payload)
-                self.display.write_frame(frame)
+                if self._screen is not None:
+                    self._screen.commit(frame)
+                else:
+                    self.display.write_frame(frame)
                 self.frames_received += 1
                 if max_frames and self.frames_received >= max_frames:
                     self._stop.set()
             elif ptype == P.CLEAR_CONSOLE:
-                self.display.reset()
+                self._on_display(self.display.reset)
             elif ptype == P.PONG:
                 pass
             elif ptype == P.SERVER_STATE:
@@ -367,7 +376,10 @@ class AsciiChatClient:
                     self.audio_pipeline.add_far(mix)
             elif ptype == P.TEXT_MESSAGE:
                 # chat line below the frame (client text chat)
-                self.display.chat_line(payload)
+                if self._screen is not None:
+                    self._screen.chat_line(payload)
+                else:
+                    self.display.chat_line(payload)
             elif ptype == P.ERROR_MESSAGE:
                 code, msg = proto.unpack_error(payload)
                 if code == proto.WireError.CODEC_UNAVAILABLE:
@@ -518,6 +530,17 @@ class AsciiChatClient:
         finally:
             await t.close()
 
+    def _on_display(self, fn, *args) -> None:
+        """``fn(*args)`` on the display thread, after the frames committed
+        before it; at once outside run(), where no display thread runs."""
+        if self._screen is not None:
+            self._screen.call(fn, *args)
+        else:
+            fn(*args)
+
+    def _toggle(self, overlay: str) -> None:
+        setattr(self.display, overlay, not getattr(self.display, overlay))
+
     def _on_key(self, key: str) -> None:
         """Live client keybindings (keyboard_handler.c analog): quit, help
         overlay, fps overlay, horizontal flip of the uplink."""
@@ -543,9 +566,9 @@ class AsciiChatClient:
             else:
                 self._stop.set()
         elif key == "?":
-            self.display.show_help = not self.display.show_help
+            self._on_display(self._toggle, "show_help")
         elif key == "s":
-            self.display.show_fps = not self.display.show_fps
+            self._on_display(self._toggle, "show_fps")
         elif key == "f":
             self.transform.flip_x = not self.transform.flip_x
 
@@ -555,8 +578,8 @@ class AsciiChatClient:
         src/common/session/ SIZE_MESSAGE-on-winch role). No-op while
         disconnected; the next CLIENT_CAPABILITIES carries the new dims."""
         self.wire_caps.width, self.wire_caps.height = w, h
-        self.display.set_meta(self.wire_caps.caps.renderer_key(),
-                              (w, h))  # keep the fps overlay honest
+        self._on_display(self.display.set_meta, self.wire_caps.caps.renderer_key(),
+                         (w, h))  # keep the fps overlay honest
         t = getattr(self, "_live_transport", None)
         if t is not None:
             t.send_nowait(pkt.PacketType.SIZE_MESSAGE, proto.pack_size(w, h))
@@ -574,7 +597,8 @@ class AsciiChatClient:
         self._loop = asyncio.get_running_loop()
         keyboard = KeyboardReader(self._on_key)
         keyboard.start()
-        self.display.setup()
+        self._screen = DisplayThread(self.display)
+        self._screen.start()
         try:
             while not self._stop.is_set():
                 try:
@@ -609,7 +633,10 @@ class AsciiChatClient:
                     await asyncio.sleep(delay)
         finally:
             keyboard.stop()
-            self.display.teardown()
+            # the last frame, what was posted after it and the teardown; a
+            # stdout that never drains costs DISPLAY_JOIN_S, not the exit
+            screen, self._screen = self._screen, None
+            screen.stop(DISPLAY_JOIN_S)
             for dev in (self.audio_source, self.audio_sink, self.opus_enc,
                         self.opus_dec, self._h265_enc, self.source):
                 if dev is not None:

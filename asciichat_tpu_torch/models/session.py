@@ -10,6 +10,9 @@ reference: client_like.c, pipeline.c, display.c):
   1->2).
 - DisplaySink: terminal frame writing with first-frame reset, chat lines,
   help/fps overlays (display.c + client display semantics).
+- DisplayThread (the port's own): a DisplaySink driven from a thread of its
+  own, so that a terminal write that blocks (a stdout pipe whose reader
+  lags) never stalls the client's event loop, and with it its audio.
 - ReconnectPolicy: the reference's backoff-with-reset connect retry
   (client_like.c reconnect loop).
 - Pacer: fps-cap pacing shared by thread loops and asyncio tasks.
@@ -17,7 +20,11 @@ reference: client_like.c, pipeline.c, display.c):
 
 from __future__ import annotations
 
+import collections
+import functools
+import threading
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -25,8 +32,12 @@ import torch
 from asciichat_tpu_torch.ops import filters
 from asciichat_tpu_torch.ops.rain import DigitalRain
 from asciichat_tpu_torch.runtime.device import default_device
+from asciichat_tpu_torch.runtime.double_buffer import LatestFrame
 from asciichat_tpu_torch.utils import term, ui
 from asciichat_tpu_torch.utils.fps import FpsCounter
+from asciichat_tpu_torch.utils.logsys import get_logger
+
+log = get_logger("display")
 
 
 class FrameTransform:
@@ -141,6 +152,111 @@ class DisplaySink:
         ).encode("utf-8")
         self.writer.stream.write(b"\x1b[0m\r\n> " + clean + b"\r\n")
         self.writer.stream.flush()
+
+
+class DisplayThread:
+    """A DisplaySink written from a thread of its own (the reference runs
+    its display, capture and playback on threads of their own,
+    src/client/audio.c:276,531).
+
+    Frames go through a ``LatestFrame``: a reader that lags makes the
+    thread skip stale frames, as the reference's display does
+    (video_frame.c:214-264), and never queues them. Every other operation
+    (reset, chat line, overlay toggle, set_meta, setup, teardown) runs on
+    the thread in the order it was posted, after the latest frame committed
+    before it, so a reset never overtakes the frame before it. ``stop``
+    writes the last committed frame, runs teardown and joins the thread
+    within a limit: a stream that never drains cannot hold up the caller's
+    exit."""
+
+    MAX_CHAT = 64  # chat lines that may wait behind a blocked stream; later ones are dropped
+
+    def __init__(self, sink: DisplaySink):
+        self.sink = sink
+        self.frames = LatestFrame()
+        self._cond = threading.Condition()
+        self._ops: collections.deque[tuple[int, Callable[[], None], bool]] = collections.deque()
+        self._written = 0  # sequence of the last frame written
+        self._stopping = False
+        self.chat_dropped = 0
+        self.write_failures = 0
+        self._thread = threading.Thread(target=self._run, name="display", daemon=True)
+
+    def start(self) -> None:
+        self.call(self.sink.setup)
+        self._thread.start()
+
+    def commit(self, frame: bytes) -> None:
+        """Make ``frame`` the next one to write (a frame not yet written is
+        replaced). Never blocks on the stream."""
+        with self._cond:
+            self.frames.commit(frame)
+            self._cond.notify()
+
+    def call(self, fn: Callable, *args) -> None:
+        """Run ``fn(*args)`` on the thread, after the frames committed before."""
+        self._post(functools.partial(fn, *args), chat=False)
+
+    def chat_line(self, text: bytes) -> None:
+        self._post(functools.partial(self.sink.chat_line, text), chat=True)
+
+    def _post(self, op: Callable[[], None], chat: bool) -> None:
+        with self._cond:
+            if chat and sum(c for _, _, c in self._ops) >= self.MAX_CHAT:
+                self.chat_dropped += 1
+                return
+            self._ops.append((self.frames.latest()[1], op, chat))
+            self._cond.notify()
+
+    def stop(self, timeout: float) -> bool:
+        """Write the last committed frame and what was posted, run
+        teardown, and join; False (logged) when the thread is still blocked
+        in a write after ``timeout`` seconds."""
+        with self._cond:
+            self._stopping = True
+            self._cond.notify()
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            log.warning("a terminal write is still blocked after %.1f s; leaving it behind",
+                        timeout)
+            return False
+        return True
+
+    def _run(self) -> None:
+        while True:
+            # the posted operations and the latest frame, taken together:
+            # an operation posted after this frame's commit has seq >= its
+            with self._cond:
+                while (not self._ops and not self._stopping
+                       and self.frames.latest()[1] == self._written):
+                    self._cond.wait()
+                ops = list(self._ops)
+                self._ops.clear()
+                frame, seq, _ = self.frames.latest()
+                stopping = self._stopping
+            for posted, op, _chat in ops:
+                if self._written < seq <= posted:
+                    self._write(frame, seq)
+                self._apply(op)
+            if seq > self._written:
+                self._write(frame, seq)
+            if stopping:
+                with self._cond:
+                    if not self._ops and self.frames.latest()[1] == self._written:
+                        break
+        self._apply(self.sink.teardown)
+
+    def _write(self, frame: bytes, seq: int) -> None:
+        self._written = seq
+        self._apply(functools.partial(self.sink.write_frame, frame))
+
+    def _apply(self, op: Callable[[], None]) -> None:
+        try:
+            op()
+        except (OSError, ValueError) as e:  # a closed or broken stream
+            self.write_failures += 1
+            if self.write_failures == 1:
+                log.warning("terminal write failed (%s)", e)
 
 
 class ReconnectPolicy:

@@ -2,9 +2,12 @@
 
 Counterpart of ``asciichat_tpu/ops/emit.py``, the JAX package's measured
 experiment in device emission. On a CUDA tensor :func:`emit_truecolor_fg`
-launches K6 (``csrc/emit.cu``: one CTA per frame, a block scan of the cells'
-byte lengths and a scatter of each cell's bytes to its offset); on a CPU
-tensor it runs the plain version, :func:`emit_truecolor_fg_reference`. The
+launches K6 (``csrc/emit.cu``: two launches over tiles of :data:`TILE`
+cells, one CTA a tile of a frame; the first sums each tile's byte lengths,
+the second scans the cells' lengths in its tile, assembles the tile's bytes
+in shared memory and stores them coalesced at the tile's offset, the sum of
+the tile sums before it); on a CPU tensor it runs the plain version,
+:func:`emit_truecolor_fg_reference`. The
 mirror, the server and ``bench`` emit on the host (``render/emitter.py``);
 ``chip_smoke.py`` times K6 against that path.
 
@@ -37,6 +40,7 @@ from asciichat_tpu_torch.runtime.device import check_tensor, stream_handle
 from asciichat_tpu_torch.runtime.kernel_build import Kernel
 
 CMAX = 21  # worst per-cell bytes: ESC[38;2;RRR;GGG;BBBm (19) + glyph + \n
+TILE = 1024  # cells a CTA of K6 (csrc/emit.cu kTile)
 _PREFIX = np.frombuffer(b"\x1b[38;2;", dtype=np.uint8).astype(np.int32)
 _RESET = np.array(list(b"\x1b[0m"), dtype=np.uint8)
 
@@ -66,6 +70,11 @@ def _check_shape(h: int, w: int) -> None:
         raise ValueError(f"frames of {h}x{w} cells: device emission needs at least one cell")
     if worst_bytes(h, w) >= 2**31:
         raise ValueError(f"frames of {h}x{w} cells: lengths would pass int32")
+
+
+def tiles(h: int, w: int) -> int:
+    """K6's tiles a frame of h x w cells: one CTA each, in each launch."""
+    return -(-h * w // TILE)
 
 
 def emit_truecolor_fg_reference(rgb: torch.Tensor, luma: torch.Tensor,
@@ -151,10 +160,12 @@ def emit_truecolor_fg(rgb: torch.Tensor, luma: torch.Tensor,
     worst = worst_bytes(h, w)
     data = torch.empty((b, worst), dtype=torch.uint8, device=dev)
     lengths = torch.empty((b,), dtype=torch.int32, device=dev)
+    tile_sum = torch.empty((b, tiles(h, w)), dtype=torch.int32, device=dev)  # scratch
     if b:
         with torch.cuda.device(dev):
             EMIT_KERNEL(rgb.data_ptr(), luma.data_ptr(), glyph_tbl.data_ptr(), b, h, w,
-                        data.data_ptr(), worst, lengths.data_ptr(), stream_handle(dev))
+                        data.data_ptr(), worst, lengths.data_ptr(), tile_sum.data_ptr(),
+                        tile_sum.numel(), stream_handle(dev))
     return data, lengths
 
 

@@ -65,7 +65,7 @@ ENTRY_POINTS: dict[str, list] = {
     "ac_mixer": [_P, _P, _I, _I64, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                  _P, _P],
     "ac_capture_chain": [_P, _P, _I, _I, _I, _I, *[_P] * 7, _P, _P, *[_P] * 7, _P],
-    "ac_device_emit": [_P, _P, _P, _I, _I, _I, _P, _I64, _P, _P],
+    "ac_device_emit": [_P, _P, _P, _I, _I, _I, _P, _I64, _P, _P, _I64, _P],
 }
 
 

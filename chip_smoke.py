@@ -4,7 +4,7 @@ its WebRTC and discovery modes, its sharded serving, the rest of its CLI,
 its device ANSI emission and its ``bench`` mode once on one NVIDIA card and
 check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k6-old PATH]
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit. It imports no JAX. The phases run in order and any failure raises,
@@ -35,15 +35,21 @@ so the exit code is non-zero:
    card's overlaid frame equal the oracle's; ``MirrorSession(matrix=True)``
    and the CLI's ``--matrix --snapshot`` on the card; the overlay timed per
    1080p frame;
-6c. device ANSI emission (``ops/emit.py``): K6 against its plain version
-   (the whole worst-case buffer and the lengths, bit for bit) and every
-   frame against ``oracle.render_truecolor_fg``, at 128 x 57x203
-   truecolor_fg records: K2's of the bench's 1080p gradient, and random
-   colours; ``emit_frames_device`` once, from a reset, for K6's launches;
-   K6 timed eager, device only and plain; and the split of what it would
-   replace: the records' fetch and the host emitter (one thread, then the
-   emitter's default count) against K6 and the fetch of its bytes and
-   lengths (host clock, the same bytes either way);
+6c. device ANSI emission (``ops/emit.py``): K6 (two launches, one CTA a
+   tile of 1,024 cells of a frame) against its plain version (the whole
+   worst-case buffer and the lengths, bit for bit) and every frame against
+   ``oracle.render_truecolor_fg``, at 57x203 truecolor_fg records in
+   batches of 1 (the mirror's), 9 (the server's) and 128 (the bench's):
+   K2's of the bench's 1080p gradient, and random colours;
+   ``emit_frames_device`` once, from a reset, for K6's launches; K6 timed
+   eager, device only and plain at 128, and eager and device only at 1 and
+   9; with ``--k6-old PATH`` (an earlier ``csrc/emit.cu``, e.g. the
+   single-CTA kernel of commit dcf0071, unpacked under ``build/``) that
+   kernel too, built alone, held bit for bit against K6 and timed in turns
+   old, new, new, old; and the split of what K6 would replace: the records' fetch and the
+   host emitter (one thread, then the emitter's default count) against K6
+   and the fetch of its bytes and lengths (host clock, the same bytes
+   either way);
 7. server: ``RenderGroup.step`` and ``fetch`` for 100 ticks, every
    receiver's bytes against the oracle;
 8. the launch counts of phase 6 (K1, K2) and phase 7 (K3), each path's
@@ -166,7 +172,11 @@ so the exit code is non-zero:
     is one PyTorch call that computes the same function (K1:
     ``frames[:, sy[:, None], sx]``; ``library_device_ms`` its device-only
     time), timed here and used nowhere in the port; no single PyTorch call
-    computes K2, K3, K4, K5 or K6, so theirs is null.
+    computes K2, K3, K4, K5 or K6, so theirs is null. K6's entry adds
+    ``small_batches`` (batches 1 and 9), ``design_bytes`` and
+    ``design_bound_ms`` (what its two launches move: the function's bytes,
+    the colours' second read and the tile sums written and read) and, with
+    ``--k6-old``, ``old_single_cta``.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Records are compared exactly (tolerance 0: every record is uint8); the
@@ -178,8 +188,11 @@ hangover, gate state and frozen fraction exactly.
 
 from __future__ import annotations
 
+import argparse
 import asyncio
+import ctypes
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -270,6 +283,7 @@ MESH_FORCE = 4  # the live server's ASCIICHAT_FORCE_MESH
 MESH_WINDOW_S = 2.0  # its steady window
 
 EMIT_SPLIT_ROUNDS = 20  # phase 6c's host-clock rounds of the emission paths, in turns
+EMIT_BATCHES = (1, 9, BATCH)  # phase 6c: the mirror's, the server's and the bench's batches
 BENCH_LIMIT_S = 600  # phase 20's bench subprocess (about 20 s on one H100)
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "eager_convert_fps",
               "emit_under_concurrency_fps", "end_to_end_onbox_fps",
@@ -897,25 +911,87 @@ def emission_split(rgb: torch.Tensor, luma: torch.Tensor, tbl: torch.Tensor) -> 
     return split
 
 
-def phase6c_device_emit(dev, errs: list[int]) -> tuple[dict, dict[str, int]]:
-    say(f"phase 6c: K6 device ANSI emission vs plain and the oracle, {BATCH} frames of "
-        "the mirror's truecolor_fg records")
+def emission_check(label: str, rgb: torch.Tensor, luma: torch.Tensor, tbl: torch.Tensor,
+                   errs: list[int]) -> None:
+    """K6 against its plain version (the whole buffer and the lengths) and
+    every frame against the oracle."""
+    b = rgb.shape[0]
+    data, lengths = emit.emit_truecolor_fg(rgb, luma, tbl)
+    want, want_len = emit.emit_truecolor_fg_reference(rgb, luma, tbl)
+    torch.cuda.synchronize()
+    if not torch.equal(lengths, want_len):
+        raise AssertionError(f"{label}: lengths differ from the plain version's")
+    check_exact(f"{label} B={b} {tuple(luma.shape[1:])}: whole buffer", data, want, errs)
+    host, lens, rgb_h = data.cpu().numpy(), lengths.cpu().numpy(), rgb.cpu().numpy()
+    for i in range(b):
+        if host[i, :lens[i]].tobytes() != oracle.render_truecolor_fg(rgb_h[i]):
+            raise AssertionError(f"{label} frame {i} differs from the oracle")
+    say(f"  ok  {label}: {b} frames byte-identical to the oracle "
+        f"({lens.min()}-{lens.max()} bytes)")
+
+
+def old_emit(path: Path):
+    """The K6 of ``path``, an earlier ``csrc/emit.cu`` whose
+    ``ac_device_emit`` takes no tile-sum scratch (the single-CTA kernel of
+    commit dcf0071), built alone with the port's nvcc flags into build/;
+    returns a call with :func:`emit.emit_truecolor_fg`'s arguments and results."""
+    digest = hashlib.sha256(path.read_bytes()).hexdigest()[:16]
+    out = kernel_build.BUILD_DIR / f"libemit-old-{digest}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        r = subprocess.run([kernel_build.nvcc_path(), *kernel_build.NVCC_FLAGS, "-o", str(out),
+                            str(path)], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"build of {path} failed:\n{r.stderr[-4000:]}")
+    fn = ctypes.CDLL(str(out)).ac_device_emit
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(rgb, luma, tbl):
+        b, h, w, _ = rgb.shape
+        worst = emit.worst_bytes(h, w)
+        data = torch.empty((b, worst), dtype=torch.uint8, device=rgb.device)
+        lengths = torch.empty((b,), dtype=torch.int32, device=rgb.device)
+        rc = fn(rgb.data_ptr(), luma.data_ptr(), tbl.data_ptr(), b, h, w, data.data_ptr(), worst,
+                lengths.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{path}: CUDA error {rc} at launch")
+        return data, lengths
+    return call
+
+
+def old_emit_times(path: Path, rgb, luma, tbl) -> dict:
+    """The kernel of ``path`` held bit for bit against K6 and timed in turns
+    old, new, new, old: device only and eager."""
+    old = old_emit(path)
+    got, got_len = old(rgb, luma, tbl)
+    want, want_len = emit.emit_truecolor_fg(rgb, luma, tbl)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got_len, want_len)):
+        raise AssertionError(f"{path}: its bytes differ from K6's")
+    new = lambda: emit.emit_truecolor_fg(rgb, luma, tbl)  # noqa: E731
+    turns = {"old": [], "new": []}
+    for name in ("old", "new", "new", "old"):
+        fn = (lambda: old(rgb, luma, tbl)) if name == "old" else new
+        turns[name].append({"device_ms": graph_ms(fn), "ms": cuda_ms(fn)})
+    say(f"  time K6 in turns old, new, new, old, device only: old "
+        f"{fmt([t['device_ms'] for t in turns['old']])} ms, new "
+        f"{fmt([t['device_ms'] for t in turns['new']])} ms; eager: old "
+        f"{fmt([t['ms'] for t in turns['old']])} ms, new "
+        f"{fmt([t['ms'] for t in turns['new']])} ms [{CARD}]")
+    return {"source": str(path), **turns}
+
+
+def phase6c_device_emit(dev, errs: list[int],
+                        old_source: Path | None = None) -> tuple[dict, dict[str, int]]:
+    say(f"phase 6c: K6 device ANSI emission vs plain and the oracle, batches {EMIT_BATCHES} "
+        "of the mirror's truecolor_fg records")
     tbl = torch.from_numpy(emit.ascii_glyph_table())
     sets = emission_records(dev)
     for name, (rgb, luma) in sets.items():
-        data, lengths = emit.emit_truecolor_fg(rgb, luma, tbl)
-        want, want_len = emit.emit_truecolor_fg_reference(rgb, luma, tbl)
-        torch.cuda.synchronize()
-        if not torch.equal(lengths, want_len):
-            raise AssertionError(f"K6 {name}: lengths differ from the plain version's")
-        check_exact(f"K6 {name} B={BATCH} {tuple(luma.shape[1:])}: whole buffer", data, want,
-                    errs)
-        host, lens, rgb_h = data.cpu().numpy(), lengths.cpu().numpy(), rgb.cpu().numpy()
-        for i in range(BATCH):
-            if host[i, :lens[i]].tobytes() != oracle.render_truecolor_fg(rgb_h[i]):
-                raise AssertionError(f"K6 {name} frame {i} differs from the oracle")
-        say(f"  ok  K6 {name}: {BATCH} frames byte-identical to the oracle "
-            f"({lens.min()}-{lens.max()} bytes)")
+        for b in EMIT_BATCHES:
+            emission_check(f"K6 {name}", rgb[:b], luma[:b], tbl, errs)
     rgb, luma = sets["gradient"]
     reset_launches()
     outs = emit.emit_frames_device({"rgb": rgb, "luma": luma})
@@ -926,14 +1002,30 @@ def phase6c_device_emit(dev, errs: list[int]) -> tuple[dict, dict[str, int]]:
     p = cuda_ms(lambda: emit.emit_truecolor_fg_reference(rgb, luma, tbl), iters=5, warmup=1)
     g = graph_ms(lambda: emit.emit_truecolor_fg(rgb, luma, tbl))
     timing(f"K6 {BATCH} x {tuple(luma.shape[1:])}", k, p, g)
+    small = {}
+    for b in EMIT_BATCHES[:-1]:
+        fn = lambda: emit.emit_truecolor_fg(rgb[:b], luma[:b], tbl)  # noqa: E731
+        small[str(b)] = {"ms": cuda_ms(fn), "device_ms": graph_ms(fn)}
+        say(f"  time K6 {b} x {tuple(luma.shape[1:])}: kernel {small[str(b)]['ms']:.4f} ms "
+            f"(device only, CUDA graph: {small[str(b)]['device_ms']:.4f} ms) [{CARD}]")
+    old = None if old_source is None else old_emit_times(old_source, rgb, luma, tbl)
     split = emission_split(rgb, luma, tbl)
     data, lengths = emit.emit_truecolor_fg(rgb, luma, tbl)
-    cell_count = luma.numel()
-    # ops: the SGR compare, three digit counts, the length and the scan a
-    # cell (~20), and one store per byte of the frames
-    ops = 20.0 * cell_count + float(lengths.sum())
-    return (dict(ms=k, plain_ms=p, device_ms=g, library_ms=None, split=split,
-                 **work(nbytes(rgb, luma), nbytes(data, lengths), ops)), launches)
+    b, h, w = luma.shape
+    # ops: the SGR compare, three digit counts and the length of a cell
+    # (~20) in each launch, the scans, and one staged store per byte of the
+    # frames
+    ops = 40.0 * luma.numel() + float(lengths.sum())
+    need = work(nbytes(rgb, luma), nbytes(data, lengths), ops)
+    # what the two launches move besides: the colours read again by the
+    # emit launch, and the tile sums written by the first and read by the second
+    design = need["bytes"] + nbytes(rgb) + 2 * 4 * b * emit.tiles(h, w)
+    entry = dict(ms=k, plain_ms=p, device_ms=g, library_ms=None, split=split,
+                 small_batches=small, design_bytes=design,
+                 design_bound_ms=design / HBM_BYTES_PER_S * 1e3, **need)
+    if old is not None:
+        entry["old_single_cta"] = old
+    return entry, launches
 
 
 def phase7_server(dev) -> None:
@@ -2470,7 +2562,11 @@ def phase20_bench() -> dict:
     return line
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description="Drive the port once on one NVIDIA card.")
+    parser.add_argument("--k6-old", type=Path, default=None, metavar="PATH",
+                        help="an earlier csrc/emit.cu to time against K6 in phase 6c")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -2493,7 +2589,8 @@ def main() -> int:
     phase6_mirror(dev, frames)
     paths["mirror"] = read_launches()
     matrix = phase6b_matrix(dev, frames)
-    times["device_emit"], paths["device_emit"] = phase6c_device_emit(dev, errs["device_emit"])
+    times["device_emit"], paths["device_emit"] = phase6c_device_emit(dev, errs["device_emit"],
+                                                                args.k6_old)
     reset_launches()
     phase7_server(dev)
     paths["server_render"] = read_launches()
@@ -2536,7 +2633,8 @@ def main() -> int:
         t = times[k.name]
         entry.update(ms=t["ms"], plain_ms=t["plain_ms"], device_ms=t["device_ms"],
                      **bounds(t), library_ms=t["library_ms"])
-        for key in ("library_device_ms", "three_groups", "split"):
+        for key in ("library_device_ms", "three_groups", "split", "small_batches",
+                    "design_bytes", "design_bound_ms", "old_single_cta"):
             if key in t:
                 entry[key] = t[key]
         report["kernels"].append(entry)

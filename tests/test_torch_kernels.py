@@ -487,6 +487,30 @@ def test_k6_matches_plain(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(1, 5), (57, 203), (300, 7)])
+@pytest.mark.parametrize("batch", [1, 9, 128])
+def test_k6_batches_match_plain(cuda, batch, hw):
+    """K6 at the mirror's batch (1), the server's (9) and the bench's (128),
+    on frames of one tile, 12 tiles with edges mid-row, and 3 tiles of
+    7-cell rows: colours in runs of 1-4 cells, so that some cells open and
+    some do not, also across tile edges. Bit for bit, the whole buffer."""
+    rng = np.random.default_rng(batch * 1000 + hw[0])
+    n = hw[0] * hw[1]
+    fresh = rng.random((batch, n)) < 0.5
+    fresh[:, 0] = True
+    idx = np.maximum.accumulate(np.where(fresh, np.arange(n), 0), axis=1)
+    colours = rng.integers(0, 256, (batch, n, 3), dtype=np.uint8)
+    runs = np.take_along_axis(colours, idx[..., None], axis=1).reshape(batch, *hw, 3)
+    rgb = torch.from_numpy(runs).to(cuda)
+    luma = pixel.luminance(rgb).to(torch.uint8)
+    tbl = torch.from_numpy(emit.ascii_glyph_table())
+    got, got_len = emit.emit_truecolor_fg(rgb, luma, tbl)
+    want, want_len = emit.emit_truecolor_fg_reference(rgb, luma, tbl)
+    assert torch.equal(got_len, want_len)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
 def test_k6_refuses_a_glyph_table_on_the_card(cuda):
     rgb = torch.zeros((1, 2, 3, 3), dtype=torch.uint8, device=cuda)
     luma = torch.zeros((1, 2, 3), dtype=torch.uint8, device=cuda)
