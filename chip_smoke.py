@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render path, audio mixer, live server and client,
 its WebRTC and discovery modes, its sharded serving, the rest of its CLI,
-its device ANSI emission and its ``bench`` mode once on one NVIDIA card and
-check them.
+its device ANSI emission, its ``bench`` mode and its server soaks once on
+one NVIDIA card and check them.
 
     python3 chip_smoke.py [--k6-old PATH]
 
@@ -25,6 +25,12 @@ so the exit code is non-zero:
    against the plain version and, for two ticks, byte-exact against the
    oracle, with one launch per tick; timed against three single-group
    calls, device only, eager and with the fetch;
+5c. K3 at soak scale: the 32 receivers of ``tools/torch_soak_thirtytwo.py``
+   in its 6 geometry groups (a custom palette among them; every receiver
+   rendered, where the server renders each group's distinct filters once)
+   over 32 sources of 800x600, one K3 launch a tick for 20 ticks: every
+   record bit-exact against the plain version, and for two ticks one
+   receiver a group byte-exact against the oracle; timed as phase 5b;
 6. mirror: ``AsciiRenderer.convert_batch`` on 128 frames of 1080p, byte-exact
    against the oracle, and the mirror CLI's ``--snapshot`` in a subprocess;
 6b. mirror ``--matrix``: the digital rain (``ops/rain.py``, torch code on the
@@ -144,9 +150,18 @@ so the exit code is non-zero:
     no ``smoke``, the byte gate passed, ``server_tick_rate`` > 0 and the
     kernel fingerprint of this library; the line is printed, and the report
     carries it as ``bench``;
+21. the server soaks on the card: ``tools/torch_soak_nine.py`` (9 clients
+    in 4 render groups, join/leave churn, live resizes; 100 s) and
+    ``tools/torch_soak_thirtytwo.py`` (32 clients in 6 groups and a 33rd;
+    80 s), uplink 5 frames/s, in subprocesses: every client served, the
+    33rd refused, the device the card, no tick-loop error, no failed device
+    tick and K3 launched; their steady ticks/s, tick p50/p99, RSS and
+    device-memory drift are printed with the card (the cadence gates belong
+    to the full-length runs), each one's stderr in
+    ``build/chip_smoke_soak_{nine,thirtytwo}.err``;
 18. the kernels, their launches on each path, their times against the
     plain versions and their bounds, as one JSON line, printed after phase
-    20. A kernel's
+    21. A kernel's
     ``launches`` is the count on its user-facing path: the mirror (phase 6)
     for K1 and K2, the live server (phase 11) for K3 and K4, the live client
     (phase 13) for K5, ``emit_frames_device`` (phase 6c) for K6, which no
@@ -154,13 +169,14 @@ so the exit code is non-zero:
     ``launches_by_path`` holds every path's own count (``render_file``:
     phase 15's renders on the card; ``webrtc_server`` and
     ``discovery_host``: phase 17's, each a fresh process; ``server_mesh``:
-    phase 19's server); the line also carries phase 6b's
+    phase 19's server; ``soak_nine`` and ``soak_thirtytwo``: phase 21's,
+    each a fresh process); the line also carries phase 6b's
     ``rain``, phase 15's ``render_file`` times, phase 16's ``web``, phase
-    19's ``mesh`` and phase 20's ``bench``. ``ms`` is the eager
-    time (CUDA events around back-to-back wrapper calls), ``device_ms`` the
-    device-only time (calls replayed from one CUDA graph); K3's entry adds
-    phase 5b's ``three_groups``, K6's phase 6c's ``split``. ``bound_ms`` is
-    the larger of the bytes the function must move (each input byte read
+    19's ``mesh``, phase 20's ``bench`` and phase 21's ``soaks``. ``ms`` is
+    the eager time (CUDA events around back-to-back wrapper calls),
+    ``device_ms`` the device-only time (calls replayed from one CUDA graph);
+    K3's entry adds phase 5b's ``three_groups`` and phase 5c's
+    ``soak_groups``, K6's phase 6c's ``split``. ``bound_ms`` is the larger of the bytes the function must move (each input byte read
     once, each output byte written once; for a gather, only the pixels it
     samples) over 3.35 TB/s and its operations over 67 TFLOP/s (the float32
     peak outside the tensor cores, taken for the integer ops too), both the
@@ -250,6 +266,7 @@ THREE_GROUPS = [(TERM_W, TERM_H, HB_TRUECOLOR, SERVER_FILTERS),
                 (80, 24, HB_16, ["white", "rainbow", "black"])]
 GROUP_TICKS = 20
 ORACLE_TICKS = 2
+SOAK_SOURCES = 32  # phase 5c: the thirty-two soak's sources (MAX_CLIENTS)
 
 MIXER_TICKS = 200
 AUDIO_N = audio.AUDIO_FRAME_SAMPLES  # 480 samples: one 10 ms tick
@@ -285,6 +302,10 @@ MESH_WINDOW_S = 2.0  # its steady window
 EMIT_SPLIT_ROUNDS = 20  # phase 6c's host-clock rounds of the emission paths, in turns
 EMIT_BATCHES = (1, 9, BATCH)  # phase 6c: the mirror's, the server's and the bench's batches
 BENCH_LIMIT_S = 600  # phase 20's bench subprocess (about 20 s on one H100)
+# phase 21's soaks: (tool, window in seconds, the clients' uplink frames/s);
+# at 30 frames/s 32 in-process clients, not the server, set the tick's pace
+SOAKS = (("nine", 100, 5), ("thirtytwo", 80, 5))
+SOAK_SLACK_S = 240  # a soak's start (torch, the kernels' library) and teardown
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "eager_convert_fps",
               "emit_under_concurrency_fps", "end_to_end_onbox_fps",
               "end_to_end_pcie_projection_fps", "host_emit_fps", "host_emit_fps_mt",
@@ -583,32 +604,35 @@ def phase5_group(dev, stack: torch.Tensor, errs: list[int]) -> dict:
 
 
 def group_bytes(g: server.RenderGroup, geometry: tuple, host: dict,
-                composite: np.ndarray, time_s: float) -> None:
-    """Every receiver's emitted frame of ``host`` (g's fetched records)
-    against the oracle applied to the filtered composite; ``geometry`` is
-    the group's (term_w, term_h, caps, filters)."""
+                composite: np.ndarray, time_s: float, receivers=None) -> None:
+    """The emitted frames of ``host`` (g's fetched records) of every
+    receiver, or of the indices in ``receivers``, against the oracle applied
+    to the filtered composite; ``geometry`` is the group's (term_w, term_h,
+    caps, filters)."""
     term_w, term_h, caps, names = geometry
     r = g.render
     outs = emitter.emit_frames(host, r.mode, g.palette, pad_w=r.pad_w, pad_h=r.pad_h)
     rows = 2 * term_h if caps.render_mode == RenderMode.HALF_BLOCK else term_h
-    for c, name in enumerate(names):
+    for c in range(len(names)) if receivers is None else receivers:
         want = oracle.ascii_convert_with_capabilities(
-            filters.apply_color_filter_reference(composite, name, time_s), term_w, rows, caps)
+            filters.apply_color_filter_reference(composite, names[c], time_s), term_w, rows,
+            caps, palette=g.palette)
         if outs[c] != want:
-            raise AssertionError(f"{r.mode} receiver {c} ({name}) differs from the oracle")
+            raise AssertionError(f"{r.mode} receiver {c} ({names[c]}) differs from the oracle")
 
 
-def phase5b_three_groups(dev, stack: torch.Tensor, errs: list[int]) -> dict:
-    say(f"phase 5b: {len(THREE_GROUPS)} geometry groups in one K3 launch per tick, "
-        f"{GROUP_TICKS} ticks")
-    sizes = [(UPLINK_W, UPLINK_H)] * SERVER_SOURCES
-    groups = [server.RenderGroup(sizes, w, h, caps, names, device=dev)
-              for w, h, caps, names in THREE_GROUPS]
+def group_ticks(stack: torch.Tensor, groups: list, geometries: list, errs: list[int],
+                receivers=None) -> int:
+    """GROUP_TICKS ticks of ``render_groups`` over ``groups``: every record
+    bit-exact against the plain render, and for ORACLE_TICKS ticks the
+    receivers' frames (all, or the indices in ``receivers``) against the
+    oracle. Returns K3's launches, which must be one a tick."""
+    sizes = [(UPLINK_W, UPLINK_H)] * stack.shape[0]
     host_stack = stack.cpu().numpy()
     composites = [compositor.composite_reference(host_stack,
                                                  compositor.plan_composite(sizes, w, h))
-                  for w, h, _, _ in THREE_GROUPS]
-    arena = server.RecordArena(dev)
+                  for w, h, _, _ in geometries]
+    arena = server.RecordArena(stack.device)
     reset_launches()
     for t in range(GROUP_TICKS):
         time_s = 100.0 + t / 60
@@ -620,17 +644,20 @@ def phase5b_three_groups(dev, stack: torch.Tensor, errs: list[int]) -> dict:
             if err:
                 raise AssertionError(f"tick {t} {g.render.mode}: max abs err {err}")
         if t < ORACLE_TICKS:
-            for g, geometry, host, comp in zip(groups, THREE_GROUPS, arena.fetch(records),
+            for g, geometry, host, comp in zip(groups, geometries, arena.fetch(records),
                                                composites):
-                group_bytes(g, geometry, host, comp, time_s)
+                group_bytes(g, geometry, host, comp, time_s, receivers)
     launches = read_launches()[server.RENDER_GROUP_KERNEL.name]
     if launches != GROUP_TICKS:
         raise AssertionError(f"{launches} K3 launches over {GROUP_TICKS} ticks, "
                              "expected one a tick")
-    shapes = ", ".join(f"{g.render.mode} {g.render.dst_h_px}px x {g.render.dst_w} x "
-                       f"{len(g.filter_names)}" for g in groups)
-    say(f"  ok  {GROUP_TICKS} ticks of {shapes}: bit-exact, one K3 launch a tick; "
-        f"{ORACLE_TICKS} ticks byte-identical to the oracle")
+    return launches
+
+
+def time_groups(stack: torch.Tensor, groups: list) -> dict:
+    """One ``render_groups`` launch a tick against a call per group, in
+    turns: device only, eager and with the fetch (host clock)."""
+    arena = server.RecordArena(stack.device)
 
     def one():
         return server.render_groups(stack, groups, 100.0, arena)
@@ -656,7 +683,60 @@ def phase5b_three_groups(dev, stack: torch.Tensor, errs: list[int]) -> dict:
         say(f"  time {name} ({'one launch' if name == 'one' else 'a call per group'}): "
             f"device only {fmt(runs['device_ms'])} ms, eager {fmt(runs['ms'])} ms, with "
             f"the fetch {fmt(runs['fetched_ms'])} ms (host clock) [{CARD}]")
-    return {"groups": shapes, "ticks": GROUP_TICKS, "launches": launches, **out}
+    return out
+
+
+def group_shapes(groups: list) -> str:
+    return ", ".join(f"{g.render.mode} {g.render.dst_h_px}px x {g.render.dst_w} x "
+                     f"{len(g.filter_names)}" for g in groups)
+
+
+def phase5b_three_groups(dev, stack: torch.Tensor, errs: list[int]) -> dict:
+    say(f"phase 5b: {len(THREE_GROUPS)} geometry groups in one K3 launch per tick, "
+        f"{GROUP_TICKS} ticks")
+    sizes = [(UPLINK_W, UPLINK_H)] * SERVER_SOURCES
+    groups = [server.RenderGroup(sizes, w, h, caps, names, device=dev)
+              for w, h, caps, names in THREE_GROUPS]
+    launches = group_ticks(stack, groups, THREE_GROUPS, errs)
+    shapes = group_shapes(groups)
+    say(f"  ok  {GROUP_TICKS} ticks of {shapes}: bit-exact, one K3 launch a tick; "
+        f"{ORACLE_TICKS} ticks byte-identical to the oracle")
+    return {"groups": shapes, "ticks": GROUP_TICKS, "launches": launches,
+            **time_groups(stack, groups)}
+
+
+def soak_groups() -> tuple[list[tuple], list[str]]:
+    """tools/torch_soak_thirtytwo.py's clients as render groups: each
+    geometry's (term_w, term_h, caps, every receiver's filter) and palette.
+    Unlike the server, which renders a filter once for all of a group's
+    receivers that share it, every receiver here is rendered."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_soak_thirtytwo as t32
+
+    geometries, palettes = [], []
+    for g, (w, h, color, mode, custom) in enumerate(t32.geos()):
+        names = [spec[-1] for spec in t32.specs()[g::len(t32.geos())]]
+        geometries.append((w, h, TerminalCapabilities(color, mode), names))
+        palettes.append(custom or palette.DEFAULT_PALETTE)
+    return geometries, palettes
+
+
+def phase5c_soak_groups(dev, errs: list[int]) -> dict:
+    geometries, palettes = soak_groups()
+    receivers = sum(len(g[3]) for g in geometries)
+    say(f"phase 5c: K3 at soak scale, {receivers} receivers in {len(geometries)} geometry "
+        f"groups over {SOAK_SOURCES} sources of {UPLINK_W}x{UPLINK_H}, one launch a tick, "
+        f"{GROUP_TICKS} ticks")
+    stack = make_frames(SOAK_SOURCES, UPLINK_H, UPLINK_W, seed=7, device=dev)
+    sizes = [(UPLINK_W, UPLINK_H)] * SOAK_SOURCES
+    groups = [server.RenderGroup(sizes, w, h, caps, names, pal_, device=dev)
+              for (w, h, caps, names), pal_ in zip(geometries, palettes)]
+    launches = group_ticks(stack, groups, geometries, errs, receivers=[0])
+    shapes = group_shapes(groups)
+    say(f"  ok  {GROUP_TICKS} ticks of {shapes}: bit-exact, one K3 launch a tick; "
+        f"{ORACLE_TICKS} ticks of one receiver a group byte-identical to the oracle")
+    return {"groups": shapes, "receivers": receivers, "sources": SOAK_SOURCES,
+            "ticks": GROUP_TICKS, "launches": launches, **time_groups(stack, groups)}
 
 
 def host_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -2562,6 +2642,76 @@ def phase20_bench() -> dict:
     return line
 
 
+def soak_run(name: str, seconds: float, uplink_fps: int) -> dict:
+    """``tools/torch_soak_<name>.py`` in a subprocess on the card: its JSON
+    line, checked for what a short window can show (the cadence gates
+    belong to the full-length runs)."""
+    env = dict(os.environ, SOAK_UPLINK_FPS=str(uplink_fps))
+    env.pop("ASCIICHAT_TORCH_DEVICE", None)
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, str(ROOT / "tools" / f"torch_soak_{name}.py"),
+                        str(seconds)], cwd=ROOT, env=env, stdin=subprocess.DEVNULL,
+                       capture_output=True, text=True, timeout=seconds + SOAK_SLACK_S)
+    took = time.monotonic() - t0
+    err_log = ROOT / "build" / f"chip_smoke_soak_{name}.err"
+    err_log.write_text(r.stderr)
+    lines = r.stdout.splitlines()
+    if r.returncode not in (0, 1) or len(lines) != 2 or not lines[1].startswith("RESULT:"):
+        raise RuntimeError(f"soak {name} exited {r.returncode}:\n{r.stdout[-2000:]}\n"
+                           f"{r.stderr[-3000:]}")
+    line = json.loads(lines[0])
+    bad = []
+    if not line["device"].startswith("cuda"):
+        bad.append(f"device {line['device']}")
+    if "died" in line or "server_tick_error" in line:
+        bad.append(f"died {line.get('died')}, tick error {line.get('server_tick_error')}")
+    if line["device_failures"]:
+        bad.append(f"device_failures {line['device_failures']}")
+    if not line["kernel_launches"][server.RENDER_GROUP_KERNEL.name] > 0:
+        bad.append("no K3 launch")
+    least = (min(line["per_client"].values()) if "per_client" in line
+             else line["per_client_min"])
+    if least <= 0:
+        bad.append("a client got no frames")
+    if name == "thirtytwo":
+        t33 = line["thirty_third"]
+        if not (t33["attempted"] and t33["refused"] and t33.get("still_32")):
+            bad.append(f"the 33rd client: {t33}")
+    if bad:
+        raise AssertionError(f"soak {name}: {'; '.join(bad)}")
+    mem = line["device_memory"]
+    lag = line["loop_lag_ms"]
+    say(f"  ok  soak {name} ({line['seconds']} s, uplink {uplink_fps} fps): "
+        f"{line['clients']} clients served, device {line['device']}, device_failures 0"
+        + (f", the 33rd refused ({line['thirty_third']['error']})" if name == "thirtytwo"
+           else f", {line['churn_joins']} churn cycles, {line['live_resizes']} resizes, "
+                f"{line['layout_replans']} replans")
+        + f"; {line['kernel_launches']}")
+    say(f"  time soak {name}: steady {line['tick_rate_steady']} ticks/s, tick p50 "
+        f"{line['latency_p50_ms']} ms, p99 {line['latency_p99_ms']} ms, worst "
+        f"{line['latency_worst_ms']} ms; stages {json.dumps(line['stage_avg_ms'])}; "
+        f"loop lag p99 {lag.get('p99_ms')} ms; RSS peak {line['rss_peak_kib']} KiB, "
+        f"drift {line['rss_postwarmup_drift_kib']} KiB; device memory max "
+        f"{mem['max_memory_allocated_bytes']} B, drift allocated "
+        f"{mem['allocated_postwarmup_drift_bytes']} B, reserved "
+        f"{mem['reserved_postwarmup_drift_bytes']} B; {line['cpu_count']} CPUs "
+        f"[{line['card']}] ({took:.1f} s, stderr in {err_log.relative_to(ROOT)})")
+    return line
+
+
+def phase21_soaks() -> tuple[dict[str, dict[str, int]], dict]:
+    say("phase 21: the server soaks on the card, tools/torch_soak_nine.py and "
+        "tools/torch_soak_thirtytwo.py in subprocesses, short windows")
+    paths, lines = {}, {}
+    for name, seconds, fps in SOAKS:
+        line = soak_run(name, seconds, fps)
+        paths[f"soak_{name}"] = line["kernel_launches"]
+        lines[name] = {k: line[k] for k in (
+            "seconds", "clients", "tick_rate_steady", "latency_p50_ms", "latency_p99_ms",
+            "rss_peak_kib", "rss_postwarmup_drift_kib", "device_memory", "card", "ok")}
+    return paths, lines
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description="Drive the port once on one NVIDIA card.")
     parser.add_argument("--k6-old", type=Path, default=None, metavar="PATH",
@@ -2583,6 +2733,7 @@ def main(argv: list[str] | None = None) -> int:
     times["render_group"] = phase5_group(dev, stack, errs["render_group"])
     times["render_group"]["three_groups"] = phase5b_three_groups(dev, stack,
                                                                  errs["render_group"])
+    times["render_group"]["soak_groups"] = phase5c_soak_groups(dev, errs["render_group"])
 
     paths: dict[str, dict[str, int]] = {}  # path -> kernel -> launches
     reset_launches()
@@ -2618,8 +2769,10 @@ def main(argv: list[str] | None = None) -> int:
     say(f"  phase 17 took {time.monotonic() - t17:.1f} s")
     paths["server_mesh"], mesh = phase19_mesh(dev, stack)
     bench_line = phase20_bench()
+    soak_paths, soaks = phase21_soaks()
+    paths.update(soak_paths)
     report = {"card": CARD, "kernels": [], "rain": matrix, "render_file": render_file,
-              "web": web_check, "mesh": mesh, "bench": bench_line}
+              "web": web_check, "mesh": mesh, "bench": bench_line, "soaks": soaks}
     for k in KERNELS:
         entry = {"name": k.name, "route": "cuda", "source": k.source,
                  "replaces": k.replaces, "launches": paths[MAIN_PATH[k.name]][k.name],
@@ -2633,8 +2786,8 @@ def main(argv: list[str] | None = None) -> int:
         t = times[k.name]
         entry.update(ms=t["ms"], plain_ms=t["plain_ms"], device_ms=t["device_ms"],
                      **bounds(t), library_ms=t["library_ms"])
-        for key in ("library_device_ms", "three_groups", "split", "small_batches",
-                    "design_bytes", "design_bound_ms", "old_single_cta"):
+        for key in ("library_device_ms", "three_groups", "soak_groups", "split",
+                    "small_batches", "design_bytes", "design_bound_ms", "old_single_cta"):
             if key in t:
                 entry[key] = t[key]
         report["kernels"].append(entry)

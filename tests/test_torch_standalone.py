@@ -39,7 +39,8 @@ from asciichat_tpu.render.types import ColorLevel, RenderMode, TerminalCapabilit
 from conftest import synthetic_frame
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "asciichat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = (sorted((REPO / "asciichat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+              + sorted((REPO / "tools").glob("torch_*.py")))
 BLOCK = ("import sys\n"
          "for name in ('asciichat_tpu', 'jax', 'jaxlib', 'PIL'):\n"
          "    sys.modules[name] = None\n")
@@ -83,6 +84,9 @@ def _imports_of_the_jax_package(path: Path) -> list[str]:
 
 def test_no_source_of_the_port_imports_the_jax_package():
     assert len(PORT_FILES) > 40
+    tools = {f"torch_soak_{name}.py" for name in ("common", "latency", "nine", "thirtytwo",
+                                                  "mixed")} | {"torch_gen_ansi_corpus.py"}
+    assert tools <= {path.name for path in PORT_FILES}
     found = [hit for path in PORT_FILES for hit in _imports_of_the_jax_package(path)]
     assert not found, found
 

@@ -395,3 +395,21 @@ def test_ws_port_zero_serves_no_websocket(ws_port, monkeypatch):
 
     assert _run(body, ws_port=ws_port) == ws_port
     assert calls == []
+
+
+def test_port_corpus_generator_reproduces_the_committed_corpus(tmp_path, monkeypatch):
+    """tools/torch_gen_ansi_corpus.py (the port's oracle and ANSI parser)
+    gives tests/data/ansi_corpus.json byte for byte, here without writing
+    it; its ``main`` writes those bytes."""
+    import importlib.util
+
+    path = REPO / "tools" / "torch_gen_ansi_corpus.py"
+    spec = importlib.util.spec_from_file_location("torch_gen_ansi_corpus", path)
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    committed = REPO / "tests" / "data" / "ansi_corpus.json"
+    assert gen.dumps(gen.corpus()).encode() == committed.read_bytes()
+    out = tmp_path / "data" / "ansi_corpus.json"
+    monkeypatch.setattr(gen, "OUT", str(out))
+    gen.main()
+    assert out.read_bytes() == committed.read_bytes()
