@@ -10,6 +10,11 @@
 // keeps the resized frame out of device memory: the records are the only
 // output. The two half-block RGB modes (records top/bot are the resized rows
 // themselves) are pure gathers and go through K1 instead (ops/cells.py).
+//
+// The gather reads every sector of each sampled row at 1080p, as K1's does
+// (resize.cu): its floor is the sector floor (PERF.md, section 6). Staging
+// the rows in shared memory (tools/k12_staged) was timed in turns with
+// this kernel and lost.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -6,7 +6,9 @@
 //
 // One thread per output cell, cells in row-major order, so neighbouring
 // threads write neighbouring record bytes. A grid-stride loop covers any
-// batch; all offsets are 64-bit.
+// batch; all offsets are 64-bit. The same body as the epilogue of a
+// row-staging kernel is tools/k12_staged/records.cuh, measured and not
+// shipped (PERF.md, section 6).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -14,6 +14,13 @@
 // column tables (sy, sx) come from utils/aspect.resize_indices on the host;
 // ops/cells.py also passes half-block row tables here, which makes the two
 // half-block RGB modes one launch per record.
+//
+// At 1080p a column steps 28.4 bytes, under one 32-byte sector, so the
+// memory moves every sector of each sampled row: the sector floor (PERF.md,
+// section 6), which this kernel reaches most of with L2 cold. A design that
+// stages the sampled rows in shared memory with bulk copies
+// (tools/k12_staged) was timed in turns with this one and lost, so this one
+// stays.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -4,7 +4,7 @@ its WebRTC and discovery modes, its sharded serving, the rest of its CLI,
 its device ANSI emission, its ``bench`` mode and its server soaks once on
 one NVIDIA card and check them.
 
-    python3 chip_smoke.py [--k6-old PATH]
+    python3 chip_smoke.py [--k6-old PATH] [--k12-alt DIR]
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit. It imports no JAX. The phases run in order and any failure raises,
@@ -13,9 +13,24 @@ so the exit code is non-zero:
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels from ``asciichat_tpu_torch/csrc`` (nvcc);
 3. K1 (resize) against its plain version, bit-exact, at the mirror's
-   1080p -> 57x203 geometry and at odd shapes;
+   1080p -> 57x203 geometry, at odd shapes and at the timed shapes (1080p
+   B=1, 8 and 128; 640x480, the webcam's, B=1 and 128; 3840x2160 B=32, whose
+   column step is over a sector), each of them to the mirror's truecolor
+   geometry; what the card's memory sustains for a 512 MiB copy and sum
+   (``memory_rates``); K1 at every timed shape warm (calls replayed from a
+   CUDA graph), eager and cold (each call after an L2 flush that writes 128
+   MiB and reads 128 MiB, timed apart and left out), each against its
+   32-byte-sector floor, and the library call warm and cold; with
+   ``--k12-alt DIR`` (another design's ``resize.cu`` and ``cell_records.cu``
+   with their headers and the package's entry points, e.g.
+   ``tools/k12_staged``, or an earlier commit's ``csrc`` unpacked under
+   ``build/``) that K1 too, built alone, held bit for bit against the
+   package's and timed in turns package, alt, alt, package, warm, cold and
+   eager;
 4. ``render_cells`` (K2; K1 for the two half-block RGB modes) against the
-   plain ``records_for_mode`` for all 10 modes, bit-exact;
+   plain ``records_for_mode`` for all 10 modes, bit-exact, at 1080p B=8 (two
+   heights), 640x480 B=8 and 3840x2160 B=32 (with ``--k12-alt``, the other
+   K2 too); K2 (truecolor_fg) at phase 3's timed shapes as K1 is timed there;
 5. K3 (server render, ``render_groups`` of one group) against the plain
    ``render_compute`` at the server's geometry: 9 sources of 800x600 ->
    203x64, per-receiver filters;
@@ -192,7 +207,14 @@ so the exit code is non-zero:
     ``small_batches`` (batches 1 and 9), ``design_bytes`` and
     ``design_bound_ms`` (what its two launches move: the function's bytes,
     the colours' second read and the tile sums written and read) and, with
-    ``--k6-old``, ``old_single_cta``.
+    ``--k6-old``, ``old_single_cta``. K1's and K2's entries add
+    ``cold_device_ms`` (phases 3 and 4's cold time at 1080p B=128),
+    ``flush_ms`` (the flush left out of it), ``shapes`` (every timed shape:
+    warm, eager and cold times, the sector floor and its shares, and with
+    ``--k12-alt`` ``in_turns``), ``cold_sector_floor_share`` and
+    ``cold_roofline_share``; their ``sector_floor_share`` is the warm one,
+    as every kernel's is.
+    K1's adds ``library_cold_device_ms`` and ``memory_rates``.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Records are compared exactly (tolerance 0: every record is uint8); the
@@ -276,6 +298,10 @@ LIVE_WAIT_S = 120.0
 LIVE_WINDOW_S = 5.0  # steady serving before the inspector is read
 LIVE_UPLINK_FPS = 15  # each source's new pictures per second in that window
 LIVE_AUDIO_HZ = 100  # each client's AUDIO_BATCHes (480 samples) per second
+
+SRC_4K_H, SRC_4K_W, BATCH_4K = 2160, 3840, 32  # 56.7 bytes a column: over a sector
+WEBCAM_H, WEBCAM_W = 480, 640  # the live mirror's webcam
+FLUSH_BYTES = 128 << 20  # each of the L2 flush's two buffers
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -363,10 +389,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
-    """Device milliseconds per call of ``fn``, replayed from one CUDA graph
-    of ``iters`` calls: the time the card spends, without the host's
-    launch cost. ``fn`` must not copy from the host."""
+def capture(fn) -> torch.cuda.CUDAGraph:
+    """A CUDA graph of one call of ``fn``, warmed up on a side stream and
+    replayed once. ``fn`` must not copy from the host."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -374,10 +399,14 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+        fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def replay_ms(graph: torch.cuda.CUDAGraph, reps: int) -> float:
+    """Device milliseconds per replay of ``graph``, over ``reps`` replays."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -385,7 +414,82 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
         graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / (reps * iters)
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device milliseconds per call of ``fn``, replayed from one CUDA graph
+    of ``iters`` calls: the time the card spends, without the host's
+    launch cost. ``fn`` must not copy from the host. The calls follow each
+    other, so what one call leaves in L2 the next may find: warm."""
+    graph = capture(lambda: [fn() for _ in range(iters)])
+    return replay_ms(graph, reps) / iters
+
+
+class L2Flush:
+    """What a caller that streams a large batch leaves in L2: nothing of the
+    kernel's inputs. One call writes FLUSH_BYTES (over twice the H100's 50
+    MB L2), then reads as many from a second buffer, so that L2 holds clean
+    lines of neither the inputs nor dirty lines that the timed kernel would
+    have to write back."""
+
+    def __init__(self, dev: torch.device):
+        self.written = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+        self.read = torch.zeros(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+        self.sink = torch.empty((), dtype=torch.int64, device=dev)
+
+    def __call__(self) -> None:
+        self.written.fill_(7)
+        torch.sum(self.read, dim=0, out=self.sink)
+
+
+def cold_ms(fn, flush: L2Flush, iters: int = 10, reps: int = 5) -> tuple[float, float]:
+    """(device milliseconds of one call of ``fn`` that finds L2 cold, of one
+    flush): a graph of ``iters`` x (flush, fn) less a graph of ``iters``
+    flushes, replayed in turns ``reps`` times, the median of the paired
+    differences. The flush is timed apart and left out; what ``fn`` leaves
+    dirty in L2 is written back during the next flush and counts as its own."""
+    def flushes():
+        for _ in range(iters):
+            flush()
+
+    def cold():
+        for _ in range(iters):
+            flush()
+            fn()
+
+    g_flush, g_cold = capture(flushes), capture(cold)
+    pairs = []
+    for _ in range(reps):
+        f = replay_ms(g_flush, 1)
+        pairs.append((replay_ms(g_cold, 1) - f, f))
+    return (float(np.median([c for c, _ in pairs])) / iters,
+            float(np.median([f for _, f in pairs])) / iters)
+
+
+def memory_rates(dev, mib: int = 512) -> dict:
+    """What the card's memory sustains for PyTorch's own streaming calls, as
+    a yardstick for a kernel's share of HBM_BYTES_PER_S: a device-to-device
+    copy (bytes read + written) and a sum (bytes read) of ``mib`` MiB,
+    device time from CUDA graphs."""
+    src = torch.empty(mib << 20, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    words = src.view(torch.int64)
+    sink = torch.empty((), dtype=torch.int64, device=dev)
+    copy = graph_ms(lambda: dst.copy_(src), iters=5)
+    read = graph_ms(lambda: torch.sum(words, dim=0, out=sink), iters=5)
+    rates = {"copy_tb_s": 2 * src.numel() / copy / 1e9, "read_tb_s": src.numel() / read / 1e9}
+    say(f"  memory: a {mib} MiB copy moves {rates['copy_tb_s']:.3f} TB/s (read + write), a sum "
+        f"reads {rates['read_tb_s']:.3f} TB/s; the bounds use {HBM_BYTES_PER_S / 1e12:.2f} "
+        f"[{CARD}]")
+    return rates
+
+
+def kernel_times(fn, flush: L2Flush) -> dict:
+    """Warm device, eager and cold device milliseconds of one call."""
+    cold, flush_ms = cold_ms(fn, flush)
+    return {"device_ms": graph_ms(fn), "ms": cuda_ms(fn), "cold_device_ms": cold,
+            "flush_ms": flush_ms}
 
 
 def max_abs_err(got, want) -> int:
@@ -478,7 +582,132 @@ def phase2_build() -> None:
             say(f"  ptxas {line.strip()}")
 
 
-def phase3_resize(dev, frames: torch.Tensor, errs: list[int]) -> dict:
+class AltK12:
+    """K1 and K2 as another design has them (``path``: a directory with its
+    resize.cu, cell_records.cu and their headers, whose entry points are the
+    package's; the package's csrc is on the include path after it), built
+    alone with the port's nvcc flags into build/, for timing in turns; the
+    package never loads them."""
+
+    def __init__(self, path: Path):
+        files = (sorted(path.glob("*.cu")) + sorted(path.glob("*.cuh"))
+                 + sorted(kernel_build.CSRC_DIR.glob("*.cuh")))
+        digest = hashlib.sha256(b"".join(f.name.encode() + f.read_bytes()
+                                         for f in files)).hexdigest()[:16]
+        out = kernel_build.BUILD_DIR / f"libk12-alt-{digest}.so"
+        if not out.exists():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            r = subprocess.run([kernel_build.nvcc_path(), *kernel_build.NVCC_FLAGS, f"-I{path}",
+                                f"-I{kernel_build.CSRC_DIR}", "-o", str(out), str(path / "resize.cu"),
+                                str(path / "cell_records.cu")], capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"build of {path} failed:\n{r.stderr[-4000:]}")
+        self.path = path
+        lib = ctypes.CDLL(str(out))
+        self.k1, self.k2 = lib.ac_resize_nn, lib.ac_cell_records
+        for fn in (self.k1, self.k2):
+            fn.argtypes = kernel_build.ENTRY_POINTS[fn.__name__]
+            fn.restype = ctypes.c_int
+
+    def resize(self, frames: torch.Tensor, tables: resize.IndexTables) -> torch.Tensor:
+        b, h, w, _ = frames.shape
+        dh, dw = tables.sy.shape[0], tables.sx.shape[0]
+        out = torch.empty((b, dh, dw, 3), dtype=torch.uint8, device=frames.device)
+        self._check(self.k1(frames.data_ptr(), b, h, w, tables.sy.data_ptr(), dh,
+                            tables.sx.data_ptr(), dw, out.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream))
+        return out
+
+    def records(self, frames: torch.Tensor, tables: resize.IndexTables, ramp: torch.Tensor,
+                mode: str) -> dict:
+        b, h, w, _ = frames.shape
+        family = cells.mode_family(mode)
+        dh, dw = tables.sy.shape[0], tables.sx.shape[0]
+        records = cells.allocate_records(family, b, dh, dw, frames.device)
+        self._check(self.k2(family, frames.data_ptr(), b, h, w, tables.sy.data_ptr(), dh,
+                            tables.sx.data_ptr(), dw, ramp.data_ptr(),
+                            *cells.record_pointers(records),
+                            torch.cuda.current_stream().cuda_stream))
+        return records
+
+    def _check(self, rc: int) -> None:
+        if rc != 0:
+            raise RuntimeError(f"{self.path}: CUDA error {rc} at launch")
+
+
+def timed_shapes(frames: torch.Tensor, webcam: torch.Tensor,
+                 frames_4k: torch.Tensor) -> dict[str, tuple[torch.Tensor, int, int]]:
+    """Phases 3 and 4's timed shapes: label -> (frames, dst_h px, dst_w), at
+    the mirror's truecolor geometry for each source."""
+    def geometry(f):
+        plan = plan_render(f.shape[2], f.shape[1], TERM_W, TERM_H, FG_TRUECOLOR)
+        return plan.dst_h_px, plan.dst_w
+    return {"1080p_b1": (frames[:1], *geometry(frames)),
+            "1080p_b8": (frames[:8], *geometry(frames)),
+            f"1080p_b{BATCH}": (frames, *geometry(frames)),
+            "480p_b1": (webcam[:1], *geometry(webcam)),
+            f"480p_b{BATCH}": (webcam, *geometry(webcam)),
+            f"4k_b{BATCH_4K}": (frames_4k, *geometry(frames_4k))}
+
+
+def k12_calls(kind: str, f: torch.Tensor, dh: int, dw: int, ramp: torch.Tensor,
+              alt: AltK12 | None) -> tuple:
+    """(the package's call, the other design's call or None, its gather
+    tables, its output bytes) of K1 or K2 (truecolor_fg) at one shape."""
+    b, h, w, _ = f.shape
+    if kind == "K1":
+        tables = resize.resize_tables(h, w, dh, dw, f.device)
+        return (lambda: resize.resize_nn(f, dh, dw, tables),
+                None if alt is None else (lambda: alt.resize(f, tables)),
+                tables, b * dh * dw * 3)
+    ct = cells.cell_tables(h, w, dh, dw, f.device)
+    return (lambda: cells.render_cells(f, ramp, dst_h=dh, dst_w=dw, mode="truecolor_fg",
+                                       tables=ct),
+            None if alt is None else (lambda: alt.records(f, ct.resize, ramp, "truecolor_fg")),
+            ct.resize, b * dh * dw * 4)
+
+
+def k12_shape_times(kind: str, shapes: dict, flush: L2Flush, ramp: torch.Tensor,
+                    alt: AltK12 | None) -> dict:
+    """K1's or K2's warm, eager and cold times at every timed shape, each
+    against its sector floor; with ``alt``, the other design's kernel held
+    bit for bit against the package's and both timed in turns package, alt,
+    alt, package."""
+    out = {}
+    for label, (f, dh, dw) in shapes.items():
+        pkg, alt_call, tables, out_bytes = k12_calls(kind, f, dh, dw, ramp, alt)
+        b, h, w, _ = f.shape
+        _, sectors = sampled_bytes(frame_offsets(b, h, w, tables))
+        floor_bytes = sectors + out_bytes + nbytes(tables.sy, tables.sx)
+        floor = floor_bytes / HBM_BYTES_PER_S * 1e3
+        t = kernel_times(pkg, flush)
+        entry = {"frames": b, "src": [h, w], "dst": [dh, dw],
+                 "sector_bytes": floor_bytes,
+                 "sector_floor_ms": floor, **t,
+                 "cold_sector_floor_share": floor / t["cold_device_ms"],
+                 "sector_floor_share": floor / t["device_ms"]}
+        say(f"  time {kind} {label} -> {dh}x{dw}: device warm {t['device_ms']:.5f} ms, cold "
+            f"{t['cold_device_ms']:.5f} ms (flush {t['flush_ms']:.5f} ms left out), eager "
+            f"{t['ms']:.5f} ms; sector floor {floor:.5f} ms ({floor_bytes} B): "
+            f"{entry['cold_sector_floor_share']:.1%} cold, "
+            f"{entry['sector_floor_share']:.1%} warm [{CARD}]")
+        if alt_call is not None:
+            check_exact(f"{kind} {label}: the other design equals the package's", alt_call(),
+                        pkg(), [])
+            turns = {"package": [], "alt": []}
+            for name in ("package", "alt", "alt", "package"):
+                turns[name].append(kernel_times(alt_call if name == "alt" else pkg, flush))
+            entry["in_turns"] = turns
+            for key, what in (("device_ms", "warm"), ("cold_device_ms", "cold"), ("ms", "eager")):
+                say(f"  time {kind} {label} in turns package, alt, alt, package, {what}: "
+                    f"package {fmt([x[key] for x in turns['package']])} ms, alt "
+                    f"{fmt([x[key] for x in turns['alt']])} ms [{CARD}]")
+        out[label] = entry
+    return out
+
+
+def phase3_resize(dev, frames: torch.Tensor, errs: list[int], shapes: dict,
+                  flush: L2Flush, alt: AltK12 | None) -> dict:
     say("phase 3: K1 resize vs plain")
     plan = plan_render(SRC_W, SRC_H, TERM_W, TERM_H, FG_TRUECOLOR)
     dh, dw = plan.dst_h_px, plan.dst_w
@@ -490,6 +719,9 @@ def phase3_resize(dev, frames: torch.Tensor, errs: list[int]) -> dict:
         f = make_frames(3, *src, seed=10 + i, device=dev)
         check_exact(f"K1 {src} -> {dst}", resize.resize_nn(f, *dst),
                     pixel.resize_nn(f, *dst), errs)
+    for label, (f, sh, sw) in shapes.items():
+        check_exact(f"K1 {label} -> {sh}x{sw}", resize.resize_nn(f, sh, sw),
+                    pixel.resize_nn(f, sh, sw), errs)
     tables = resize.resize_tables(SRC_H, SRC_W, dh, dw, dev)
     sy, sx = tables.sy.long(), tables.sx.long()
 
@@ -498,16 +730,22 @@ def phase3_resize(dev, frames: torch.Tensor, errs: list[int]) -> dict:
 
     check_exact(f"library frames[:, sy[:, None], sx] B={BATCH}", library(),
                 resize.resize_nn(frames, dh, dw, tables), [])
+    rates = memory_rates(dev)
     k = cuda_ms(lambda: resize.resize_nn(frames, dh, dw, tables))
     p = cuda_ms(lambda: pixel.resize_nn(frames, dh, dw))
     g = graph_ms(lambda: resize.resize_nn(frames, dh, dw, tables))
     lib, lib_g = cuda_ms(library), graph_ms(library)
+    lib_cold, _ = cold_ms(library, flush)
     timing(f"K1 1080p B={BATCH} -> {dh}x{dw}", k, p, g)
-    say(f"  time library frames[:, sy[:, None], sx]: {lib:.4f} ms (device only, "
-        f"CUDA graph: {lib_g:.4f} ms) [{CARD}]")
+    say(f"  time library frames[:, sy[:, None], sx]: {lib:.4f} ms (device only, CUDA graph: "
+        f"{lib_g:.4f} ms warm, {lib_cold:.4f} ms cold) [{CARD}]")
+    by_shape = k12_shape_times("K1", shapes, flush, torch.empty(0), alt)
+    main = by_shape[f"1080p_b{BATCH}"]
     out = BATCH * dh * dw * 3
     sampled, sectors = sampled_bytes(frame_offsets(BATCH, SRC_H, SRC_W, tables))
-    return dict(ms=k, plain_ms=p, device_ms=g, library_ms=lib, library_device_ms=lib_g,
+    return dict(ms=k, plain_ms=p, device_ms=g, cold_device_ms=main["cold_device_ms"],
+                flush_ms=main["flush_ms"], library_ms=lib, library_device_ms=lib_g,
+                library_cold_device_ms=lib_cold, shapes=by_shape, memory_rates=rates,
                 **work(sampled, out, 0.0, sectors, nbytes(tables.sy, tables.sx)))
 
 
@@ -515,16 +753,29 @@ def plain_cells(frames, ramp, dh, dw, mode):
     return cells.records_for_mode(pixel.resize_nn(frames, dh, dw), mode, ramp)
 
 
-def phase4_cells(frames: torch.Tensor, errs: list[int]) -> dict:
+def phase4_cells(frames: torch.Tensor, errs: list[int], shapes: dict, flush: L2Flush,
+                 alt: AltK12 | None) -> dict:
     say("phase 4: render_cells (K2, K1 for half-block RGB) vs plain, 10 modes")
     ramp = cells.ramp_for_palette(palette.DEFAULT_PALETTE)
     f8 = frames[:8]
+    checked = {"1080p_b8": f8, "480p_b8": shapes[f"480p_b{BATCH}"][0][:8],
+               f"4k_b{BATCH_4K}": shapes[f"4k_b{BATCH_4K}"][0]}
     for mode in cells.MODES:
         half = cells.mode_family(mode) in cells.HALFBLOCK_FAMILIES
-        for dh in ((2 * TERM_H, 57) if half else (TERM_H, 57)):
-            got = cells.render_cells(f8, ramp, dst_h=dh, dst_w=TERM_W, mode=mode)
-            check_exact(f"{mode} 1080p B=8 -> {dh}px x {TERM_W}", got,
-                        plain_cells(f8, ramp, dh, TERM_W, mode), errs)
+        for label, f in checked.items():
+            if label == "1080p_b8":
+                dw, heights = TERM_W, ((2 * TERM_H, 57) if half else (TERM_H, 57))
+            else:
+                plan = plan_render(f.shape[2], f.shape[1], TERM_W, TERM_H, caps_for_mode(mode))
+                dw, heights = plan.dst_w, (plan.dst_h_px,)
+            for dh in heights:
+                got = cells.render_cells(f, ramp, dst_h=dh, dst_w=dw, mode=mode)
+                check_exact(f"{mode} {label} -> {dh}px x {dw}", got,
+                            plain_cells(f, ramp, dh, dw, mode), errs)
+                if alt is not None and not half:
+                    t = cells.cell_tables(f.shape[1], f.shape[2], dh, dw, f.device)
+                    check_exact(f"{mode} {label}: the other design's K2 equals the package's",
+                                alt.records(f, t.resize, ramp, mode), got, [])
         dh = 2 * TERM_H if half else TERM_H
         tables = cells.cell_tables(SRC_H, SRC_W, dh, TERM_W, frames.device)
         k = cuda_ms(lambda: cells.render_cells(f8, ramp, dst_h=dh, dst_w=TERM_W,
@@ -541,11 +792,14 @@ def phase4_cells(frames: torch.Tensor, errs: list[int]) -> dict:
     p = cuda_ms(lambda: plain_cells(frames, ramp, plan.dst_h_px, plan.dst_w, plan.mode))
     g = graph_ms(lambda: cells.render_cells(frames, ramp, tables=tables, **args))
     timing(f"K2 {plan.mode} 1080p B={BATCH} -> {plan.dst_h_px}x{plan.dst_w}", k, p, g)
+    by_shape = k12_shape_times("K2", shapes, flush, ramp, alt)
+    main = by_shape[f"1080p_b{BATCH}"]
     records = cells.render_cells(frames, ramp, tables=tables, **args)
     sampled, sectors = sampled_bytes(frame_offsets(BATCH, SRC_H, SRC_W, tables.resize))
     cell_count = BATCH * plan.dst_h_px * plan.dst_w
     # ops: luma (3 multiplies, 3 adds, a shift) per cell
-    return dict(ms=k, plain_ms=p, device_ms=g, library_ms=None,
+    return dict(ms=k, plain_ms=p, device_ms=g, cold_device_ms=main["cold_device_ms"],
+                flush_ms=main["flush_ms"], library_ms=None, shapes=by_shape,
                 **work(sampled, nbytes(records), 7.0 * cell_count, sectors,
                        nbytes(tables.resize.sy, tables.resize.sx)))
 
@@ -1270,6 +1524,9 @@ def bounds(t: dict) -> dict:
         floor = t["sector_bytes"] / HBM_BYTES_PER_S * 1e3
         out.update(sector_bytes=t["sector_bytes"], sector_floor_ms=floor,
                    sector_floor_share=floor / t["device_ms"])
+        if "cold_device_ms" in t:  # the shares against the time a cold caller sees
+            out.update(cold_sector_floor_share=floor / t["cold_device_ms"],
+                       cold_roofline_share=bound / t["cold_device_ms"])
     return out
 
 
@@ -2716,6 +2973,10 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description="Drive the port once on one NVIDIA card.")
     parser.add_argument("--k6-old", type=Path, default=None, metavar="PATH",
                         help="an earlier csrc/emit.cu to time against K6 in phase 6c")
+    parser.add_argument("--k12-alt", type=Path, default=None, metavar="DIR",
+                        help="a directory with another design's resize.cu, cell_records.cu "
+                             "and headers (e.g. tools/k12_staged) to time against K1 and K2 "
+                             "in phases 3 and 4")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2725,10 +2986,15 @@ def main(argv: list[str] | None = None) -> int:
     phase2_build()
     frames = make_frames(BATCH, SRC_H, SRC_W, seed=2, device=dev)
     errs: dict[str, list[int]] = {k.name: [] for k in KERNELS}
+    shapes = timed_shapes(frames, make_frames(BATCH, WEBCAM_H, WEBCAM_W, seed=4, device=dev),
+                          make_frames(BATCH_4K, SRC_4K_H, SRC_4K_W, seed=3, device=dev))
+    flush = L2Flush(dev)
+    alt = None if args.k12_alt is None else AltK12(args.k12_alt)
     times = {
-        "resize_nn": phase3_resize(dev, frames, errs["resize_nn"]),
-        "cell_records": phase4_cells(frames, errs["cell_records"]),
+        "resize_nn": phase3_resize(dev, frames, errs["resize_nn"], shapes, flush, alt),
+        "cell_records": phase4_cells(frames, errs["cell_records"], shapes, flush, alt),
     }
+    del shapes, flush
     stack = make_frames(SERVER_SOURCES, UPLINK_H, UPLINK_W, seed=5, device=dev)
     times["render_group"] = phase5_group(dev, stack, errs["render_group"])
     times["render_group"]["three_groups"] = phase5b_three_groups(dev, stack,
@@ -2786,7 +3052,9 @@ def main(argv: list[str] | None = None) -> int:
         t = times[k.name]
         entry.update(ms=t["ms"], plain_ms=t["plain_ms"], device_ms=t["device_ms"],
                      **bounds(t), library_ms=t["library_ms"])
-        for key in ("library_device_ms", "three_groups", "soak_groups", "split",
+        for key in ("cold_device_ms", "flush_ms", "library_device_ms",
+                    "library_cold_device_ms", "shapes", "memory_rates", "three_groups",
+                    "soak_groups", "split",
                     "small_batches", "design_bytes", "design_bound_ms", "old_single_cta"):
             if key in t:
                 entry[key] = t[key]

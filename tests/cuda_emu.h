@@ -12,11 +12,25 @@
 // kernel's `extern __shared__` array is rewritten to point at it), and the
 // cp.async pipeline (__pipeline_memcpy_async / _commit / _wait_prior) queues
 // each thread's copies and performs them only when a wait retires their
-// batch, so a read that the kernel does not wait for sees stale data.
+// batch, so a read that the kernel does not wait for sees stale data. Built
+// with EMU_COPY_EARLY, a copy lands as soon as it is issued instead (the
+// other end of what the card allows), so a copy into shared memory that
+// other threads may still be reading shows in their result.
+// The occupancy query answers EMU_BLOCKS_PER_SM (2) and the card has
+// EMU_SMS (3) SMs, so that a persistent grid has a few CTAs.
+// Hopper's mbarrier and 1-D bulk copy (EMU_CUDA tells a kernel's source to
+// take these in place of its PTX): mbarrier_init, mbarrier_arrive_expect_tx,
+// bulk_copy_to_shared (16-byte aligned ends and a multiple of 16 bytes, as
+// the card requires, else the run aborts) and mbarrier_try_wait_parity. A
+// bulk copy lands only when a wait on its barrier retires it (with
+// EMU_COPY_EARLY, at once), and a barrier's phase completes when its
+// arrivals are in and its transaction count is back at zero.
 // Launch with EMU_LAUNCH(kernel, threads, smem_bytes, args...) in place of
 // kernel<<<1, threads, smem_bytes, stream>>>(args), and with
 // EMU_LAUNCH_GRID(kernel, blocks, threads, smem_bytes, args...) in place of
-// kernel<<<blocks, threads, smem_bytes, stream>>>(args). It runs the kernel's
+// kernel<<<blocks, threads, smem_bytes, stream>>>(args) (or
+// EMU_LAUNCH_GRID_LIMITED, which also holds the launch to its kernel's
+// opt-in to dynamic shared memory past 48 KB). It runs the kernel's
 // logic, not its compiled code: the card's compiler and memory model are
 // checked only on the card.
 #pragma once
@@ -28,8 +42,12 @@
 #include <cstring>
 #include <deque>
 #include <functional>
+#include <cstdio>
+#include <cstdlib>
 #include <memory>
+#include <mutex>
 #include <numeric>
+#include <unordered_map>
 #include <random>
 #include <thread>
 #include <vector>
@@ -60,14 +78,53 @@ struct alignas(16) uint4 {
 
 using cudaStream_t = void*;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline int cudaGetLastError() { return cudaSuccess; }
+inline thread_local cudaError_t emu_last_error = cudaSuccess;  // a launch that failed
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t e = emu_last_error;
+  emu_last_error = cudaSuccess;
+  return e;
+}
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e == cudaSuccess ? "no error" : "invalid argument";
+}
 inline cudaError_t cudaGetDevice(int* device) {
   *device = 0;
   return cudaSuccess;
 }
+// Each kernel's opt-in to dynamic shared memory past 48 KB, as the last
+// cudaFuncSetAttribute set it. EMU_LAUNCH_GRID_LIMITED holds a launch to
+// it, as the card does: past 48 KB and past the opt-in, the launch fails
+// and cudaGetLastError says so.
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline std::mutex emu_opt_in_mutex;
+inline std::unordered_map<const void*, int> emu_opt_in;
 template <typename F>
-cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+cudaError_t cudaFuncSetAttribute(F kernel, cudaFuncAttribute, int bytes) {
+  std::lock_guard<std::mutex> lock(emu_opt_in_mutex);
+  emu_opt_in[reinterpret_cast<const void*>(kernel)] = bytes;
+  return cudaSuccess;
+}
+inline bool emu_smem_allowed(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return true;
+  std::lock_guard<std::mutex> lock(emu_opt_in_mutex);
+  const auto it = emu_opt_in.find(kernel);
+  return it != emu_opt_in.end() && bytes <= (size_t)it->second;
+}
+
+#ifndef EMU_BLOCKS_PER_SM
+#define EMU_BLOCKS_PER_SM 2
+#endif
+#ifndef EMU_SMS
+#define EMU_SMS 3
+#endif
+template <typename F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F, int, size_t) {
+  *blocks = EMU_BLOCKS_PER_SM;
+  return cudaSuccess;
+}
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = EMU_SMS;
   return cudaSuccess;
 }
 
@@ -83,9 +140,18 @@ struct EmuCopy {
 inline thread_local std::vector<EmuCopy> emu_open_batch;
 inline thread_local std::deque<std::vector<EmuCopy>> emu_batches;
 
+inline void emu_perform(const EmuCopy& c) {
+  std::memcpy(c.dst, c.src, c.bytes - c.zfill);
+  std::memset(static_cast<char*>(c.dst) + c.bytes - c.zfill, 0, c.zfill);
+}
+
 inline void __pipeline_memcpy_async(void* dst, const void* src, size_t bytes,
                                     size_t zfill = 0) {
+#ifdef EMU_COPY_EARLY
+  emu_perform({dst, src, bytes, zfill});
+#else
   emu_open_batch.push_back({dst, src, bytes, zfill});
+#endif
 }
 inline void __pipeline_commit() {
   emu_batches.push_back(std::move(emu_open_batch));
@@ -93,12 +159,96 @@ inline void __pipeline_commit() {
 }
 inline void __pipeline_wait_prior(size_t n) {
   while (emu_batches.size() > n) {
-    for (const EmuCopy& c : emu_batches.front()) {
-      std::memcpy(c.dst, c.src, c.bytes - c.zfill);
-      std::memset(static_cast<char*>(c.dst) + c.bytes - c.zfill, 0, c.zfill);
-    }
+    for (const EmuCopy& c : emu_batches.front()) emu_perform(c);
     emu_batches.pop_front();
   }
+}
+
+#define EMU_CUDA 1
+
+struct EmuMbarrier {
+  int count = 0, pending = 0;
+  long tx = 0;
+  unsigned phase = 0;
+  std::vector<EmuCopy> queued;
+};
+inline std::mutex emu_mbar_mutex;
+inline std::unordered_map<const void*, EmuMbarrier> emu_mbars;  // one launch's block
+
+inline EmuMbarrier& emu_mbar(const void* bar) {
+  auto it = emu_mbars.find(bar);
+  if (it == emu_mbars.end()) {
+    std::fprintf(stderr, "cuda_emu: mbarrier %p used before mbarrier_init\n", bar);
+    std::abort();
+  }
+  return it->second;
+}
+
+inline void emu_mbar_settle(EmuMbarrier& m) {
+  if (m.pending == 0 && m.tx == 0) {
+    m.phase ^= 1;
+    m.pending = m.count;
+  }
+}
+
+inline void mbarrier_init(uint64_t* bar, int count) {
+  std::lock_guard<std::mutex> lock(emu_mbar_mutex);
+  EmuMbarrier& m = emu_mbars[bar];
+  m = EmuMbarrier{};
+  m.count = m.pending = count;
+}
+inline void fence_mbarrier_init() {}
+inline void fence_proxy_async() {}
+
+inline void mbarrier_arrive_expect_tx(uint64_t* bar, int bytes) {
+  std::lock_guard<std::mutex> lock(emu_mbar_mutex);
+  EmuMbarrier& m = emu_mbar(bar);
+  m.tx += bytes;
+  m.pending -= 1;
+  emu_mbar_settle(m);
+}
+
+inline void bulk_copy_to_shared(void* dst, const void* src, int bytes, uint64_t* bar) {
+  if (((uintptr_t)dst | (uintptr_t)src | (uintptr_t)bytes) % 16 != 0 || bytes <= 0) {
+    std::fprintf(stderr, "cuda_emu: bulk copy of %d bytes %p -> %p is not 16-byte aligned\n",
+                 bytes, src, dst);
+    std::abort();
+  }
+  std::lock_guard<std::mutex> lock(emu_mbar_mutex);
+  EmuMbarrier& m = emu_mbar(bar);
+#ifdef EMU_COPY_EARLY
+  std::memcpy(dst, src, bytes);
+  m.tx -= bytes;
+  emu_mbar_settle(m);
+#else
+  m.queued.push_back({dst, src, (size_t)bytes, 0});
+#endif
+}
+
+// True once the phase of parity `parity` has completed; a wait on a phase
+// that has not lands the barrier's copies first.
+inline bool mbarrier_try_wait_parity(uint64_t* bar, int parity) {
+  thread_local long spins = 0;
+  {
+    std::lock_guard<std::mutex> lock(emu_mbar_mutex);
+    EmuMbarrier& m = emu_mbar(bar);
+    for (const EmuCopy& c : m.queued) {
+      std::memcpy(c.dst, c.src, c.bytes);
+      m.tx -= (long)c.bytes;
+    }
+    m.queued.clear();
+    emu_mbar_settle(m);
+    if ((int)(m.phase & 1) != parity) {
+      spins = 0;
+      return true;
+    }
+  }
+  if (++spins > 20000000L) {
+    std::fprintf(stderr, "cuda_emu: a wait on mbarrier %p never completes\n", (void*)bar);
+    std::abort();
+  }
+  std::this_thread::yield();
+  return false;
 }
 
 // A barrier for `count` threads. By default a thread waits by sleeping;
@@ -236,6 +386,8 @@ inline void emu_run_grid(int blocks, int threads, size_t smem_bytes,
         emu_open_batch.clear();  // copies a thread never waited for
         emu_batches.clear();
         block.arrive_and_wait();  // the next block reuses the shared memory
+        if (i == 0) emu_mbars.clear();
+        block.arrive_and_wait();
       }
     });
   for (auto& t : pool) t.join();
@@ -250,3 +402,7 @@ inline void emu_run(int threads, size_t smem_bytes,
   emu_run(threads, smem_bytes, [&] { kernel(__VA_ARGS__); })
 #define EMU_LAUNCH_GRID(kernel, blocks, threads, smem_bytes, ...) \
   emu_run_grid(blocks, threads, smem_bytes, [&] { kernel(__VA_ARGS__); })
+#define EMU_LAUNCH_GRID_LIMITED(kernel, blocks, threads, smem_bytes, ...)                 \
+  (emu_smem_allowed(reinterpret_cast<const void*>(&kernel), smem_bytes)                 \
+       ? emu_run_grid(blocks, threads, smem_bytes, [&] { kernel(__VA_ARGS__); })        \
+       : (void)(emu_last_error = cudaErrorInvalidValue))
