@@ -1,0 +1,12 @@
+"""Mean host ms of a convert_batch call outside the four wrapped calls
+(to_device, cells_for_plan, records_to_numpy, emit_frames): the plan, the
+table lookup, the shape check and ``contiguous``."""
+
+from harness.tracing import SPANS
+
+
+def read(run):
+    if run.trace is None or not run.window.calls:
+        return None
+    inside = sum(run.span_ms(name) for name in SPANS)
+    return sum(run.call_ms()) / len(run.window.calls) - inside
