@@ -82,6 +82,7 @@ from asciichat_tpu_torch.render import palette as pal
 from asciichat_tpu_torch.runtime.device import default_device
 from asciichat_tpu_torch.runtime.double_buffer import LatestFrame
 from asciichat_tpu_torch.runtime.ringbuffer import AudioRing
+from asciichat_tpu_torch.utils import trace
 from asciichat_tpu_torch.utils.logsys import get_logger, ring_log
 from asciichat_tpu_torch.utils.ui import Stats
 
@@ -157,6 +158,11 @@ class ClientState:
 
 # palette_type wire values (palette.h:88-98): 0 standard .. 4 cool, 5 custom
 _PALETTE_TYPE_NAMES = ("standard", "blocks", "digital", "minimal", "cool")
+
+
+def _stages_ms(tracer) -> dict[str, float]:
+    """Mean ms of each of a tracer's stages, for the inspector."""
+    return {k: round(t / max(n, 1) * 1e3, 3) for k, (t, n) in tracer.snapshot().items()}
 
 
 def _client_palette(wc, server_palette: str) -> str:
@@ -251,6 +257,8 @@ class AsciiChatServer:
         from asciichat_tpu_torch.utils.trace import LatencyTracker, Tracer
 
         self.tick_tracer = Tracer("tick")
+        self.audio_tracer = Tracer("audio")
+        self._render_timer = None  # CUDA event pair around a tick's render
         self.tick_latency = LatencyTracker()  # tick start -> frames queued
         self.audio_latency = LatencyTracker()  # audio tick start -> mixes queued
         self.frame_age = LatencyTracker()  # upload commit -> tick pickup
@@ -541,6 +549,7 @@ class AsciiChatServer:
         c.next_frame_due = max(c.next_frame_due, now) + 1.0 / fps
         return False
 
+    @trace.spanned("server.tick", request=True)
     def _render_tick(self, snapshot: list[ClientState]) -> None:
         # `snapshot` is taken on the event-loop thread; this method runs in an
         # executor and must not iterate self.clients (mutated on connect/
@@ -595,25 +604,26 @@ class AsciiChatServer:
         layout = (shape, tuple(c.id for c, _, _ in sources), sizes)
         fresh_layout = (self._stack_pool is None
                         or self._stack_layout != layout)
-        # the last tick's non_blocking row copies may still read the pool
-        self._wait_stack_upload()
-        if fresh_layout:
-            if self._stack_pool is None or tuple(self._stack_pool.shape) != shape:
-                self._stack_pool = torch.zeros(
-                    shape, dtype=torch.uint8,
-                    pin_memory=self.device.type == "cuda")
-            else:
-                self._stack_pool.fill_(0)
-            self._stack_layout = layout
-            self._stack_seqs = {}
-            self.layout_replans += 1
-        stack = self._stack_pool.numpy()  # filled through its numpy view
-        changed: list[int] = []
-        for i, (c, f, seq) in enumerate(sources):
-            if fresh_layout or self._stack_seqs.get(c.id) != seq:
-                stack[i, : f.shape[0], : f.shape[1]] = f
-                self._stack_seqs[c.id] = seq
-                changed.append(i)
+        with self.tick_tracer.span("fill"):
+            # the last tick's non_blocking row copies may still read the pool
+            self._wait_stack_upload()
+            if fresh_layout:
+                if self._stack_pool is None or tuple(self._stack_pool.shape) != shape:
+                    self._stack_pool = torch.zeros(
+                        shape, dtype=torch.uint8,
+                        pin_memory=self.device.type == "cuda")
+                else:
+                    self._stack_pool.fill_(0)
+                self._stack_layout = layout
+                self._stack_seqs = {}
+                self.layout_replans += 1
+            stack = self._stack_pool.numpy()  # filled through its numpy view
+            changed: list[int] = []
+            for i, (c, f, seq) in enumerate(sources):
+                if fresh_layout or self._stack_seqs.get(c.id) != seq:
+                    stack[i, : f.shape[0], : f.shape[1]] = f
+                    self._stack_seqs[c.id] = seq
+                    changed.append(i)
 
         try:
             self._render_tick_device(receivers, sizes, stack,
@@ -655,8 +665,7 @@ class AsciiChatServer:
             log.warning(
                 "SLOW_TICK: %.1f ms > %.2f ms deadline — %s", dt * 1e3,
                 self._tick_deadline * 1e3,
-                self.tick_tracer.breakdown(reset=False, force=True)
-                or "no stage data",
+                self.tick_tracer.breakdown() or "no stage data",
             )
 
     def _upload_stack(self, changed, fresh_layout):
@@ -714,7 +723,7 @@ class AsciiChatServer:
                    _client_palette(wc, self.palette))
             groups.setdefault(key, []).append(c)
 
-        with self.tick_tracer.section("upload"):
+        with self.tick_tracer.span("upload"):
             frames_dev = self._upload_stack(
                 changed if changed is not None else [], fresh_layout)
         now = time.monotonic()
@@ -771,24 +780,38 @@ class AsciiChatServer:
                 grp.set_filters(unique_filters)
             self._group_last_used[cache_key] = self._tick_seq
             staged.append((grp, members, member_slot, len(unique_filters)))
-        with self.tick_tracer.section("convert"):
+        # "device_render": the render's device time, from a CUDA event pair
+        # read once the fetch has waited for it (on the CPU the render runs
+        # inside the call); the rest of "fetch" is the records' copy
+        timer = self._render_events()
+        with self.tick_tracer.span("convert"):
+            started = time.perf_counter()
+            if timer is not None:
+                timer[0].record()
             records = render_groups(frames_dev, [s[0] for s in staged], now,
                                     self._arena)
+            if timer is not None:
+                timer[1].record()
+            rendered = time.perf_counter() - started
         if self.mesh is not None:
             # the render's copies of the stack to the mesh's other devices
             self.mesh_collectives = self._arena.copies
-        with self.tick_tracer.section("fetch"):
+        with self.tick_tracer.span("fetch"):
             hosts = self._arena.fetch(records)  # one copy, the arena's pinned buffer
+        if timer is not None:
+            timer[1].synchronize()
+            rendered = timer[0].elapsed_time(timer[1]) / 1e3
+        self.tick_tracer.add("device_render", rendered)
         # Drain phase: emit and pack group by group.
         for (grp, members, member_slot, n_uniq), host in zip(staged, hosts):
-            with self.tick_tracer.section("emit"):
+            with self.tick_tracer.span("emit"):
                 views = emitter.emit_frames(
                     host, grp.render.mode, grp.palette,
                     pad_w=grp.render.pad_w, pad_h=grp.render.pad_h, copy=False,
                 )
             # per-slot packing cache: compress once per unique rendered frame
             packed: dict[tuple[int, bool], bytes] = {}
-            with self.tick_tracer.section("pack"):
+            with self.tick_tracer.span("pack"):
                 for i, c in enumerate(members):
                     no_compress = bool(c.wire_caps.capabilities_mask & 0x1)
                     pk = (member_slot[i], no_compress)
@@ -802,7 +825,7 @@ class AsciiChatServer:
                     to_send.append((c, payload))
             frames_rendered += n_uniq
             compute_count += 1
-        with self.tick_tracer.section("send"):
+        with self.tick_tracer.span("send"):
             for c, payload in to_send:
                 # stale ASCII frames are worthless to a stalled reader:
                 # shed past ~3 frames' worth of backlog (latest-wins, same
@@ -817,6 +840,17 @@ class AsciiChatServer:
     # ------------------------------------------------------------------
     # Audio tick: exclude-self mixes for everyone in one batched op
 
+    def _render_events(self) -> tuple[torch.cuda.Event, torch.cuda.Event] | None:
+        """The timing event pair of the render thread's tick on a CUDA
+        device (one tick at a time uses it), else None."""
+        if self.device.type != "cuda":
+            return None
+        if self._render_timer is None:
+            self._render_timer = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+        return self._render_timer
+
+    @trace.spanned("server.audio_tick", request=True)
     def _audio_tick(self, snapshot: list[ClientState]) -> None:
         # runs in an executor (a device wait must not stall the event loop);
         # iterates the snapshot, not self.clients
@@ -830,65 +864,68 @@ class AsciiChatServer:
         slots = [c.id for c in snapshot]
         samples_t, active_t, mixes_t = self._audio_buffers(len(slots), n)
         samples, active = samples_t.numpy(), active_t.numpy()
-        samples.fill(0.0)
-        active.fill(False)
-        # latest-audio-wins latency bound (consumer-side shedding): the
-        # SPSC ring truncates NEW writes when full, so a network burst that
-        # once filled a client's ring would otherwise play ~1.4 s late
-        # FOREVER (the tick only drains 480 samples per 10 ms). Cap the
-        # backlog at ~4 frames and discard the oldest surplus.
-        max_backlog = 4 * n
-        for i, c in enumerate(snapshot):
-            excess = len(c.audio) - max_backlog
-            if excess > 0:
-                c.audio.read(excess)
-            if len(c.audio) >= n:
-                samples[i] = c.audio.read(n)
-                active[i] = True
+        with self.audio_tracer.span("drain"):
+            samples.fill(0.0)
+            active.fill(False)
+            # latest-audio-wins latency bound (consumer-side shedding): the
+            # SPSC ring truncates NEW writes when full, so a network burst that
+            # once filled a client's ring would otherwise play ~1.4 s late
+            # FOREVER (the tick only drains 480 samples per 10 ms). Cap the
+            # backlog at ~4 frames and discard the oldest surplus.
+            max_backlog = 4 * n
+            for i, c in enumerate(snapshot):
+                excess = len(c.audio) - max_backlog
+                if excess > 0:
+                    c.audio.read(excess)
+                if len(c.audio) >= n:
+                    samples[i] = c.audio.read(n)
+                    active[i] = True
         stream = self._audio_stream
-        with (torch.cuda.stream(stream) if stream is not None
-              else contextlib.nullcontext()):
-            if slots != self.mixer_slots or self.mixer_state is None:
-                self.mixer_slots = slots
-                self.mixer_state = audio_ops.MixerState.init(
-                    len(slots), len(slots), self.device).astuple()
-            mixes, self.mixer_state = audio_ops.mixer_process(
-                samples_t.to(self.device, non_blocking=True),
-                active_t.to(self.device, non_blocking=True), self.mixer_state)
-            mixes_t.copy_(mixes, non_blocking=True)
-        if stream is not None:
-            stream.synchronize()  # the mixes are in mixes_t; the buffers are free
+        with self.audio_tracer.span("mix"):
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                if slots != self.mixer_slots or self.mixer_state is None:
+                    self.mixer_slots = slots
+                    self.mixer_state = audio_ops.MixerState.init(
+                        len(slots), len(slots), self.device).astuple()
+                mixes, self.mixer_state = audio_ops.mixer_process(
+                    samples_t.to(self.device, non_blocking=True),
+                    active_t.to(self.device, non_blocking=True), self.mixer_state)
+                mixes_t.copy_(mixes, non_blocking=True)
+            if stream is not None:
+                stream.synchronize()  # the mixes are in mixes_t; the buffers are free
         mixes = mixes_t.numpy()
-        for i, c in enumerate(snapshot):
-            if not c.has_caps:
-                continue
-            if c.wire_caps.codec_audio == 1 and c.opus is None:
-                # listen-only opus clients (codec_audio caps, no mic) never
-                # hit the uplink handler that lazily creates the context —
-                # create it on the DOWNLINK side too, else they get raw
-                # float32 at ~1.5 Mbps instead of the negotiated codec
-                from asciichat_tpu_torch.runtime import codecs
-
-                try:
-                    new = codecs.OpusCodec()
-                    if c.opus is None:  # uplink handler may have raced us
-                        c.opus = new
-                    else:
-                        new.close()
-                except codecs.CodecUnavailable:
-                    c.opus = False
-            if c.wire_caps.codec_audio == 1 and c.opus:
-                # opus client: encode its personalized mix with ITS context
-                try:
-                    payload = pkt.pack_audio_batch(c.opus.encode(mixes[i]), n, 1)
-                    c.transport.send_nowait(pkt.PacketType.AUDIO_OPUS_BATCH, payload)
+        with self.audio_tracer.span("encode_send"):
+            for i, c in enumerate(snapshot):
+                if not c.has_caps:
                     continue
-                except ValueError:
-                    pass  # fall through to raw
-            payload = pkt.pack_audio_batch(
-                mixes[i].astype("<f4").tobytes(), n, 1
-            )
-            c.transport.send_nowait(pkt.PacketType.AUDIO_BATCH, payload)
+                if c.wire_caps.codec_audio == 1 and c.opus is None:
+                    # listen-only opus clients (codec_audio caps, no mic) never
+                    # hit the uplink handler that lazily creates the context —
+                    # create it on the DOWNLINK side too, else they get raw
+                    # float32 at ~1.5 Mbps instead of the negotiated codec
+                    from asciichat_tpu_torch.runtime import codecs
+
+                    try:
+                        new = codecs.OpusCodec()
+                        if c.opus is None:  # uplink handler may have raced us
+                            c.opus = new
+                        else:
+                            new.close()
+                    except codecs.CodecUnavailable:
+                        c.opus = False
+                if c.wire_caps.codec_audio == 1 and c.opus:
+                    # opus client: encode its personalized mix with ITS context
+                    try:
+                        payload = pkt.pack_audio_batch(c.opus.encode(mixes[i]), n, 1)
+                        c.transport.send_nowait(pkt.PacketType.AUDIO_OPUS_BATCH, payload)
+                        continue
+                    except ValueError:
+                        pass  # fall through to raw
+                payload = pkt.pack_audio_batch(
+                    mixes[i].astype("<f4").tobytes(), n, 1
+                )
+                c.transport.send_nowait(pkt.PacketType.AUDIO_BATCH, payload)
         self.audio_latency.add(time.perf_counter() - t0)
 
     def _audio_buffers(self, s: int, n: int) -> tuple[torch.Tensor, ...]:
@@ -1123,10 +1160,11 @@ class AsciiChatServer:
             "audio_tick_latency": self.audio_latency.stats_ms(),
             "frame_age": self.frame_age.stats_ms(),
             "tick_deadline_ms": round(self._tick_deadline * 1e3, 2),
-            "tick_stages_ms": {
-                k: round(t / max(n, 1) * 1e3, 3)
-                for k, (t, n) in self.tick_tracer.snapshot().items()
-            },
+            "tick_stages_ms": _stages_ms(self.tick_tracer),
+            "audio_stages_ms": _stages_ms(self.audio_tracer),
+            # the process's counters: bytes emitted, buffers allocated, kernel
+            # libraries built (utils/trace.py)
+            "trace_counters": trace.PROCESS.counters(),
             "client_ids": list(self.clients),
             "stats": self.stats.report(len(self.clients)),
         }

@@ -29,6 +29,7 @@ from asciichat_tpu_torch.ops import pixel, resize
 from asciichat_tpu_torch.render import palette as pal
 from asciichat_tpu_torch.runtime.device import check_tensor, stream_handle
 from asciichat_tpu_torch.runtime.kernel_build import Kernel
+from asciichat_tpu_torch.utils import trace
 from asciichat_tpu_torch.utils.aspect import resize_indices
 
 RecordDict = dict[str, torch.Tensor]
@@ -201,9 +202,11 @@ class HostStaging:
         if buf is None or buf.shape != like.shape or buf.dtype != like.dtype:
             buf = self._bufs[name] = torch.empty(like.shape, dtype=like.dtype,
                                                  pin_memory=True)
+            trace.count("staging_allocs")
         return buf
 
 
+@trace.spanned("render.fetch")
 def records_to_numpy(records: RecordDict, staging: HostStaging | None = None
                      ) -> dict[str, np.ndarray]:
     """Device -> host copy of the record dict into C-contiguous arrays (the
@@ -217,5 +220,6 @@ def records_to_numpy(records: RecordDict, staging: HostStaging | None = None
     for k, v in records.items():
         host[k] = staging.buffer(k, v)
         host[k].copy_(v, non_blocking=True)
-    torch.cuda.current_stream(cuda[0]).synchronize()
+    with trace.span("render.fetch.sync"):
+        torch.cuda.current_stream(cuda[0]).synchronize()
     return {k: v.numpy() for k, v in host.items()}

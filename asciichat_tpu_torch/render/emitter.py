@@ -16,6 +16,7 @@ import numpy as np
 
 from asciichat_tpu_torch.render import palette as pal
 from asciichat_tpu_torch.runtime.kernel_build import emitter_lib
+from asciichat_tpu_torch.utils import trace
 
 def _default_threads() -> int:
     """Emitter worker threads: ASCIICHAT_EMIT_THREADS pins the count (the
@@ -54,6 +55,7 @@ def _out_buffers(b: int, stride: int) -> tuple[np.ndarray, np.ndarray, int]:
         while len(cache) > 8:
             cache.pop(next(iter(cache)))
         got = cache[key] = (np.empty((b, cls), np.uint8), np.zeros(b, np.int64))
+        trace.count("out_buffer_allocs")
     return got[0], got[1], cls
 
 
@@ -146,6 +148,7 @@ def _c(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.uint8)
 
 
+@trace.spanned("render.emit")
 def emit_frames(
     records: dict[str, np.ndarray],
     mode: str,
@@ -162,50 +165,55 @@ def emit_frames(
     compress/compare) before emitting again. Materializing a 244 KB bytes
     object per frame costs ~95 us on this host, more than the emission itself;
     the serving path compresses/sends straight from the view instead.
+
+    Spans: ``render.emit.native`` (the native call, counting ``ansi_bytes``)
+    and, with copy=True, ``render.emit.copy`` (one bytes object a frame).
     """
     lib = emitter_lib()
     nthreads = nthreads or _DEFAULT_THREADS
 
     b, h, w = _validate_records(records, mode)
     stride_min = _worst_case_stride(mode, h, w, pad_w, pad_h)
-    out, lens, stride = _out_buffers(b, stride_min)
-    lens_p = lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
-
-    if mode == "mono":
-        lib.ac_emit_mono(_u8(_c(records["key"])), b, h, w, _u8(_table_mono(palette)),
-                         pad_w, pad_h, _u8(out), stride, lens_p, nthreads)
-    elif mode == "truecolor_fg":
-        lib.ac_emit_truecolor_fg(_u8(_c(records["rgb"])), _u8(_c(records["luma"])), b, h, w,
-                                 _u8(_table_luma(palette)), pad_w, pad_h, _u8(out), stride, lens_p, nthreads)
-    elif mode in ("256color", "16color"):
-        gidx = records["luma"] if mode == "256color" else records["key"]
-        lib.ac_emit_indexed(_u8(_c(records["color"])), _u8(_c(gidx)), b, h, w,
-                            1 if mode == "16color" else 0, _u8(_table_luma(palette)), pad_w, pad_h,
-                            _u8(out), stride, lens_p, nthreads)
-    elif mode in ("16color_dithered", "16color_dithered_bg"):
-        lib.ac_emit_16_dithered(_u8(_c(records["rgb"])), _u8(_c(records["luma"])), b, h, w,
-                                1 if mode.endswith("_bg") else 0, _u8(_table_ramp(palette)),
-                                _u8(_table_luma(palette)),
-                                pad_w, pad_h, _u8(out), stride, lens_p, nthreads)
-    elif mode == "halfblock_truecolor":
-        lib.ac_emit_halfblock_truecolor(_u8(_c(records["top"])), _u8(_c(records["bot"])), b, h, w,
-                                        pad_w, pad_h, _u8(out), stride, lens_p, nthreads)
-    elif mode in ("halfblock_256", "halfblock_16"):
-        lib.ac_emit_halfblock_indexed(_u8(_c(records["fg"])), _u8(_c(records["bg"])),
-                                      _u8(_c(records["transparent"])), b, h, w,
-                                      1 if mode == "halfblock_16" else 0,
-                                      pad_w, pad_h, _u8(out), stride, lens_p, nthreads)
-    else:  # halfblock_mono (mode validated above)
-        lib.ac_emit_halfblock_mono(_u8(_c(records["top"])), _u8(_c(records["bot"])), b, h, w,
-                                   pad_w, pad_h, _u8(out), stride, lens_p, nthreads)
-
-    if lens.min(initial=0) < 0:
-        # a native worker threw (bad_alloc in per-frame scratch): the C side
-        # catches it at the thread barrier and marks every frame -1 rather
-        # than letting the exception terminate/unwind the process
-        raise MemoryError("native emitter worker failed (allocation)")
+    with trace.span("render.emit.native") as native:
+        out, lens, stride = _out_buffers(b, stride_min)
+        lens_p = lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+        if mode == "mono":
+            lib.ac_emit_mono(_u8(_c(records["key"])), b, h, w, _u8(_table_mono(palette)),
+                             pad_w, pad_h, _u8(out), stride, lens_p, nthreads)
+        elif mode == "truecolor_fg":
+            lib.ac_emit_truecolor_fg(_u8(_c(records["rgb"])), _u8(_c(records["luma"])), b, h, w,
+                                     _u8(_table_luma(palette)), pad_w, pad_h, _u8(out), stride, lens_p, nthreads)
+        elif mode in ("256color", "16color"):
+            gidx = records["luma"] if mode == "256color" else records["key"]
+            lib.ac_emit_indexed(_u8(_c(records["color"])), _u8(_c(gidx)), b, h, w,
+                                1 if mode == "16color" else 0, _u8(_table_luma(palette)), pad_w, pad_h,
+                                _u8(out), stride, lens_p, nthreads)
+        elif mode in ("16color_dithered", "16color_dithered_bg"):
+            lib.ac_emit_16_dithered(_u8(_c(records["rgb"])), _u8(_c(records["luma"])), b, h, w,
+                                    1 if mode.endswith("_bg") else 0, _u8(_table_ramp(palette)),
+                                    _u8(_table_luma(palette)),
+                                    pad_w, pad_h, _u8(out), stride, lens_p, nthreads)
+        elif mode == "halfblock_truecolor":
+            lib.ac_emit_halfblock_truecolor(_u8(_c(records["top"])), _u8(_c(records["bot"])), b, h, w,
+                                            pad_w, pad_h, _u8(out), stride, lens_p, nthreads)
+        elif mode in ("halfblock_256", "halfblock_16"):
+            lib.ac_emit_halfblock_indexed(_u8(_c(records["fg"])), _u8(_c(records["bg"])),
+                                          _u8(_c(records["transparent"])), b, h, w,
+                                          1 if mode == "halfblock_16" else 0,
+                                          pad_w, pad_h, _u8(out), stride, lens_p, nthreads)
+        else:  # halfblock_mono (mode validated above)
+            lib.ac_emit_halfblock_mono(_u8(_c(records["top"])), _u8(_c(records["bot"])), b, h, w,
+                                       pad_w, pad_h, _u8(out), stride, lens_p, nthreads)
+        if lens.min(initial=0) < 0:
+            # a native worker threw (bad_alloc in per-frame scratch): the C side
+            # catches it at the thread barrier and marks every frame -1 rather
+            # than letting the exception terminate/unwind the process
+            raise MemoryError("native emitter worker failed (allocation)")
+        native.add("ansi_bytes", int(lens.sum()))
     if not copy:
         # zero-copy ndarray views (buffer protocol: zstd/socket/crc consume
         # them directly); valid until this thread's next emit_frames call
         return [out[i, : lens[i]] for i in range(b)]
-    return [out[i, : lens[i]].tobytes() for i in range(b)]
+    with trace.span("render.emit.copy"):
+        return [out[i, : lens[i]].tobytes() for i in range(b)]
+

@@ -19,6 +19,7 @@ from asciichat_tpu_torch.render import palette as pal
 from asciichat_tpu_torch.render.oracle import compute_render_geometry
 from asciichat_tpu_torch.render.types import TerminalCapabilities
 from asciichat_tpu_torch.runtime.device import default_device
+from asciichat_tpu_torch.utils import trace
 
 # Geometries whose gather tables a renderer keeps on its device.
 TABLE_CACHE_MAX = 16
@@ -71,23 +72,28 @@ class AsciiRenderer:
                 self._tables.pop(next(iter(self._tables)))
             tables = self._tables[key] = cells.cell_tables(
                 src_h, src_w, plan.dst_h_px, plan.dst_w, self.device)
+            trace.count("table_builds")
         return tables
 
-    def cells_for_plan(self, frames: torch.Tensor, plan: RenderPlan) -> cells.RecordDict:
-        """Device part only: frames uint8 [B,Hs,Ws,3] -> cell records."""
-        tables = None
-        if frames.device.type == "cuda":
+    @trace.spanned("render.records")
+    def cells_for_plan(self, frames: torch.Tensor, plan: RenderPlan,
+                       tables: cells.CellTables | None = None) -> cells.RecordDict:
+        """Device part only: frames uint8 [B,Hs,Ws,3] -> cell records
+        (``tables``: the geometry's gather tables, looked up where not given)."""
+        if tables is None and frames.device.type == "cuda":
             tables = self._tables_for(frames.shape[1], frames.shape[2], plan)
         return cells.render_cells(frames, self._ramp, dst_h=plan.dst_h_px,
                                   dst_w=plan.dst_w, mode=plan.mode, tables=tables)
 
+    @trace.spanned("render.ingest")
     def to_device(self, frames: np.ndarray | torch.Tensor) -> torch.Tensor:
         """A uint8 tensor of ``frames`` on the renderer's device."""
-        if isinstance(frames, torch.Tensor):
-            return frames.to(self.device, torch.uint8)
-        host = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.uint8))
-        return host.to(self.device)
+        if not isinstance(frames, torch.Tensor):
+            frames = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.uint8))
+        trace.count("bytes", frames.nbytes)
+        return frames.to(self.device, torch.uint8)
 
+    @trace.spanned("render.convert_batch", request=True)
     def convert_batch(
         self,
         frames: np.ndarray | torch.Tensor,
@@ -97,7 +103,9 @@ class AsciiRenderer:
         use_aspect_ratio: bool = True,
         stretch: bool = False,
     ) -> list[bytes]:
-        """Full conversion for a batch: [B, Hs, Ws, 3] uint8 -> B ANSI frames."""
+        """Full conversion for a batch: [B, Hs, Ws, 3] uint8 -> B ANSI frames.
+        Each call is one request of the process's tracer (utils/trace.py), a
+        span a stage: ingest, plan, records, fetch, emit."""
         frames = self.to_device(frames)
         if frames.ndim != 4 or frames.shape[-1] != 3:
             # a single [H,W,3] frame here would read W as the height and 3 as
@@ -107,8 +115,11 @@ class AsciiRenderer:
                 f"convert_batch expects [B,H,W,3], got {tuple(frames.shape)}; "
                 "use convert() for a single frame")
         src_h, src_w = frames.shape[1], frames.shape[2]
-        plan = plan_render(src_w, src_h, width, height, caps, use_aspect_ratio, stretch)
-        records = self.cells_for_plan(frames.contiguous(), plan)
+        with trace.span("render.plan"):
+            plan = plan_render(src_w, src_h, width, height, caps, use_aspect_ratio, stretch)
+            tables = (self._tables_for(src_h, src_w, plan) if frames.device.type == "cuda"
+                      else None)
+        records = self.cells_for_plan(frames.contiguous(), plan, tables)
         host = cells.records_to_numpy(records, self._staging)
         return emitter.emit_frames(
             host, plan.mode, self.palette, pad_w=plan.pad_w, pad_h=plan.pad_h

@@ -21,6 +21,12 @@ repository root's ``native/``, which this module only reads: :func:`native_lib`
 builds ``native/<name>.cpp`` with g++ into ``build/torch_native/``, under the
 same content hash, so the port never shares a build directory with another
 package.
+
+Each build is a ``kernel.build`` span of the process's tracer
+(``utils/trace.py``, counting ``libraries`` built), and each library's
+digest and ``ctypes`` load ``kernel.load`` spans, so a process's set-up, or
+a build in the middle of a run, shows in its aggregates and under
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from asciichat_tpu_torch.utils import trace
 
 REPO_DIR = Path(__file__).resolve().parent.parent.parent
 CSRC_DIR = REPO_DIR / "asciichat_tpu_torch" / "csrc"
@@ -123,24 +131,27 @@ def build_cuda(verbose: bool = False) -> tuple[Path, str]:
     output); ``verbose`` adds ``-Xptxas -v`` (each kernel's registers, shared
     memory and spills) to a fresh build."""
     units = _sources("*.cu")
-    out = BUILD_DIR / f"libkernels-{library_digest()}.so"
-    if out.exists():
-        return out, ""
+    with trace.span("kernel.load"):
+        out = BUILD_DIR / f"libkernels-{library_digest()}.so"
+        if out.exists():
+            return out, ""
     nvcc = nvcc_path()
     flags = [f for f in NVCC_FLAGS if f != "-shared"] + (["-Xptxas", "-v"] if verbose else [])
     objs = BUILD_DIR / f"objects-{out.stem}-{os.getpid()}"
     objs.mkdir(parents=True, exist_ok=True)
     try:
-        jobs = [(unit, subprocess.Popen(
-            [nvcc, *flags, "-c", f"-I{CSRC_DIR}", "-o", str(objs / f"{unit.stem}.o"), str(unit)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for unit in units]
-        texts = [job.communicate()[0] for _, job in jobs]  # every job ends first
-        for (unit, job), text in zip(jobs, texts):
-            if job.returncode != 0:
-                raise RuntimeError(f"kernel build failed ({unit.name}):\n{text[-6000:]}")
-        log = "".join(texts)
-        link = [nvcc, *NVCC_ARCH, "-shared"]
-        log += _compile(link, sorted(objs.glob("*.o")), out)
+        with trace.span("kernel.build") as build:
+            jobs = [(unit, subprocess.Popen(
+                [nvcc, *flags, "-c", f"-I{CSRC_DIR}", "-o", str(objs / f"{unit.stem}.o"), str(unit)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for unit in units]
+            texts = [job.communicate()[0] for _, job in jobs]  # every job ends first
+            for (unit, job), text in zip(jobs, texts):
+                if job.returncode != 0:
+                    raise RuntimeError(f"kernel build failed ({unit.name}):\n{text[-6000:]}")
+            log = "".join(texts)
+            link = [nvcc, *NVCC_ARCH, "-shared"]
+            log += _compile(link, sorted(objs.glob("*.o")), out)
+            build.add("libraries")
     finally:
         shutil.rmtree(objs, ignore_errors=True)
     return out, log
@@ -150,7 +161,8 @@ def build_cuda(verbose: bool = False) -> tuple[Path, str]:
 def cuda_lib() -> ctypes.CDLL:
     """libkernels, built at first use, with every entry point's types set."""
     path, _ = build_cuda()
-    lib = ctypes.CDLL(str(path))
+    with trace.span("kernel.load"):
+        lib = ctypes.CDLL(str(path))
     for name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -250,16 +262,21 @@ def native_lib(name: str) -> ctypes.CDLL:
     (with ``-march=native`` where the toolchain takes it: CRC32-C uses SSE4.2)."""
     src = NATIVE_DIR / f"{name}.cpp"
     link = NATIVE_LINK.get(name, ())
-    out = NATIVE_BUILD_DIR / f"lib{name}-{_digest([src], NATIVE_FLAGS + link)}.so"
-    if not out.exists():
-        with _build_lock(out):
+    with trace.span("kernel.load"):
+        out = NATIVE_BUILD_DIR / f"lib{name}-{_digest([src], NATIVE_FLAGS + link)}.so"
+        found = out.exists()
+    if not found:
+        # the wait for another process's build of the same library counts too
+        with trace.span("kernel.build") as build, _build_lock(out):
             if not out.exists():
                 cxx = os.environ.get("CXX", "g++")
                 try:
                     _compile([cxx, "-march=native", *NATIVE_FLAGS], [src], out, link)
                 except RuntimeError:
                     _compile([cxx, *NATIVE_FLAGS], [src], out, link)
-    return ctypes.CDLL(str(out))
+                build.add("libraries")
+    with trace.span("kernel.load"):
+        return ctypes.CDLL(str(out))
 
 
 @functools.lru_cache(maxsize=None)
