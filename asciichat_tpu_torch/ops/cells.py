@@ -119,18 +119,44 @@ class CellTables:
     resize: resize.IndexTables  # K2: sy [dst_h_px], sx [dst_w]
     top: resize.IndexTables  # K1, half-block: pixel rows 0, 2, 4, ...
     bot: resize.IndexTables  # K1, half-block: rows 1, 3, ...; odd heights repeat the last
+    # The distinct source rows the three sample, sorted (int32, host), and the
+    # same three gathers on a source of those rows alone (ops/ingest.py); both
+    # None where they are more than half the source's rows.
+    rows: np.ndarray | None = None
+    compact: CellTables | None = None
+
+
+def _gathers(src_h: int, src_w: int, sy: np.ndarray, sx: np.ndarray,
+             device: torch.device) -> tuple[resize.IndexTables, ...]:
+    """The resize, top and bot tables of rows ``sy`` and columns ``sx``."""
+    dst_h = sy.shape[0]
+    bot_rows = np.minimum(2 * np.arange((dst_h + 1) // 2) + 1, dst_h - 1)
+    return tuple(resize.IndexTables.from_host(src_h, src_w, ys, sx, device)
+                 for ys in (sy, sy[0::2], sy[bot_rows]))
+
+
+def row_tables(src_h: int, src_w: int, dst_h: int, dst_w: int,
+               device: torch.device) -> tuple[np.ndarray, CellTables]:
+    """The distinct source rows that (src_h -> dst_h) samples, and the tables
+    that gather the same pixels from a batch of those rows alone,
+    [B, len(rows), src_w, 3]: each row index is its row's place in ``rows``."""
+    sy = resize_indices(src_h, dst_h)
+    rows = np.unique(sy).astype(np.int32)
+    compact = np.searchsorted(rows, sy).astype(np.int32)
+    return rows, CellTables(*_gathers(len(rows), src_w, compact,
+                                      resize_indices(src_w, dst_w), device))
 
 
 def cell_tables(src_h: int, src_w: int, dst_h: int, dst_w: int,
                 device: torch.device) -> CellTables:
+    """The gathers for (src_h, src_w) -> (dst_h px, dst_w), with their row
+    form where it samples at most half the source's rows."""
     sy = resize_indices(src_h, dst_h)
-    sx = resize_indices(src_w, dst_w)
-    bot_rows = np.minimum(2 * np.arange((dst_h + 1) // 2) + 1, dst_h - 1)
-    return CellTables(
-        resize.IndexTables.from_host(src_h, src_w, sy, sx, device),
-        resize.IndexTables.from_host(src_h, src_w, sy[0::2], sx, device),
-        resize.IndexTables.from_host(src_h, src_w, sy[bot_rows], sx, device),
-    )
+    rows, compact = None, None
+    if 0 < len(np.unique(sy)) <= src_h // 2:
+        rows, compact = row_tables(src_h, src_w, dst_h, dst_w, device)
+    return CellTables(*_gathers(src_h, src_w, sy, resize_indices(src_w, dst_w), device),
+                      rows, compact)
 
 
 def allocate_records(family: int, batch: int, hpx: int, width: int,

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from asciichat_tpu_torch.ops import cells
+from asciichat_tpu_torch.ops import cells, ingest
 from asciichat_tpu_torch.render import emitter
 from asciichat_tpu_torch.render import palette as pal
 from asciichat_tpu_torch.render.oracle import compute_render_geometry
@@ -86,10 +86,21 @@ class AsciiRenderer:
                                   dst_w=plan.dst_w, mode=plan.mode, tables=tables)
 
     @trace.spanned("render.ingest")
-    def to_device(self, frames: np.ndarray | torch.Tensor) -> torch.Tensor:
-        """A uint8 tensor of ``frames`` on the renderer's device."""
+    def to_device(self, frames: np.ndarray | torch.Tensor,
+                  rows: np.ndarray | None = None) -> torch.Tensor:
+        """A uint8 tensor of ``frames`` on the renderer's device; with
+        ``rows`` (for frames that ``ingest.takes_rows``), of those source
+        rows alone, [B, len(rows), W, 3], one 2-D copy a row. Counts the
+        ``bytes`` it hands over and the batches that went either way."""
+        if rows is not None:
+            out = ingest.copy_rows(frames, rows, self.device)
+            trace.count("ingest_row_batches")
+            trace.count("ingest_rows", len(rows))
+            trace.count("bytes", out.nbytes)
+            return out
         if not isinstance(frames, torch.Tensor):
             frames = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.uint8))
+        trace.count("ingest_whole_batches")
         trace.count("bytes", frames.nbytes)
         return frames.to(self.device, torch.uint8)
 
@@ -105,8 +116,9 @@ class AsciiRenderer:
     ) -> list[bytes]:
         """Full conversion for a batch: [B, Hs, Ws, 3] uint8 -> B ANSI frames.
         Each call is one request of the process's tracer (utils/trace.py), a
-        span a stage: ingest, plan, records, fetch, emit."""
-        frames = self.to_device(frames)
+        span a stage: plan, ingest, records, fetch, emit. The plan comes from
+        the host frames' shape, so that pinned host frames go to the card as
+        the source rows the geometry samples alone (ops/ingest.py)."""
         if frames.ndim != 4 or frames.shape[-1] != 3:
             # a single [H,W,3] frame here would read W as the height and 3 as
             # the width, and the native emitter would then walk 3x the bytes
@@ -117,8 +129,12 @@ class AsciiRenderer:
         src_h, src_w = frames.shape[1], frames.shape[2]
         with trace.span("render.plan"):
             plan = plan_render(src_w, src_h, width, height, caps, use_aspect_ratio, stretch)
-            tables = (self._tables_for(src_h, src_w, plan) if frames.device.type == "cuda"
+            tables = (self._tables_for(src_h, src_w, plan) if self.device.type == "cuda"
                       else None)
+        if tables is not None and ingest.takes_rows(frames, self.device, tables.rows):
+            frames, tables = self.to_device(frames, tables.rows), tables.compact
+        else:
+            frames = self.to_device(frames)
         records = self.cells_for_plan(frames.contiguous(), plan, tables)
         host = cells.records_to_numpy(records, self._staging)
         return emitter.emit_frames(

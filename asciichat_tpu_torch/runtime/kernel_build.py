@@ -74,6 +74,7 @@ ENTRY_POINTS: dict[str, list] = {
                  _P, _P],
     "ac_capture_chain": [_P, _P, _I, _I, _I, _I, *[_P] * 7, _P, _P, *[_P] * 7, _P],
     "ac_device_emit": [_P, _P, _P, _I, _I, _I, _P, _I64, _P, _P, _I64, _P],
+    "ac_copy_rows": [_P, _I64, _I64, _I64, _I64, _P, _I, _P, _P],
 }
 
 

@@ -25,6 +25,7 @@
 // bulk copy lands only when a wait on its barrier retires it (with
 // EMU_COPY_EARLY, at once), and a barrier's phase completes when its
 // arrivals are in and its transaction count is back at zero.
+// cudaMemcpy2DAsync is a loop of host copies over its lines, done when called.
 // Launch with EMU_LAUNCH(kernel, threads, smem_bytes, args...) in place of
 // kernel<<<1, threads, smem_bytes, stream>>>(args), and with
 // EMU_LAUNCH_GRID(kernel, blocks, threads, smem_bytes, args...) in place of
@@ -77,7 +78,7 @@ struct alignas(16) uint4 {
 };
 
 using cudaStream_t = void*;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidPitchValue = 12 };
 inline thread_local cudaError_t emu_last_error = cudaSuccess;  // a launch that failed
 inline cudaError_t cudaGetLastError() {
   const cudaError_t e = emu_last_error;
@@ -86,6 +87,19 @@ inline cudaError_t cudaGetLastError() {
 }
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e == cudaSuccess ? "no error" : "invalid argument";
+}
+// A 2-D copy (cudaMemcpy2DAsync): `height` lines of `width` bytes, each
+// source line `spitch` bytes after the last and each destination line
+// `dpitch`, done at once on the host. A pitch under the width is refused,
+// as the card refuses it.
+enum cudaMemcpyKind { cudaMemcpyHostToDevice = 1 };
+inline cudaError_t cudaMemcpy2DAsync(void* dst, size_t dpitch, const void* src, size_t spitch,
+                                     size_t width, size_t height, cudaMemcpyKind, cudaStream_t) {
+  if (width > dpitch || width > spitch) return cudaErrorInvalidPitchValue;
+  for (size_t y = 0; y < height; ++y)
+    std::memcpy(static_cast<char*>(dst) + y * dpitch, static_cast<const char*>(src) + y * spitch,
+                width);
+  return cudaSuccess;
 }
 inline cudaError_t cudaGetDevice(int* device) {
   *device = 0;

@@ -9,7 +9,11 @@ the package's (csrc/resize.cu, csrc/cell_records.cu, csrc/records.cuh: a
 thread per output pixel) and the row-staging design that was measured and
 not shipped (tools/k12_staged: a persistent grid of EMU_SMS x
 EMU_BLOCKS_PER_SM warps, each sampled row copied into a ring of
-shared-memory slots by one bulk copy on an mbarrier).
+shared-memory slots by one bulk copy on an mbarrier). The package's kernels
+also run on the compact batch that the row ingest makes (design ``rows``:
+csrc/ingest.cu's ac_copy_rows, one cudaMemcpy2DAsync a sampled row, emulated
+as a loop of line copies, then K2 or K1 through ops/cells.row_tables),
+against the same kernels on the full frames and the plain versions.
 
 The staged design in three builds: the copies land only when a wait
 retires them (a read that is not waited for sees the stage's noise); they
@@ -38,7 +42,7 @@ import numpy as np
 import pytest
 import torch
 
-from asciichat_tpu_torch.ops import cells, pixel, resize
+from asciichat_tpu_torch.ops import cells, ingest, pixel, resize
 from asciichat_tpu_torch.render import palette as pal
 from asciichat_tpu_torch.runtime import kernel_build
 
@@ -55,6 +59,7 @@ PACKAGE = {
         r"records_kernel<FAM, Src><<<\(unsigned\)blocks, threads, 0, stream>>>\(",
         "EMU_LAUNCH_GRID((records_kernel<FAM, Src>), (int)blocks, threads, 0, ")]),
     "cells_math.cuh": (kernel_build.CSRC_DIR, []),
+    "ingest.cu": (kernel_build.CSRC_DIR, []),
 }
 STAGED_SOURCES = {
     "resize.cu": (STAGED, []),
@@ -71,7 +76,10 @@ STAGED_SOURCES = {
 BUILDS = {"package": (PACKAGE, ()), "wait": (STAGED_SOURCES, ()),
           "early": (STAGED_SOURCES, ("-DEMU_COPY_EARLY",)),
           "short_stage": (STAGED_SOURCES, ("-DAC_MAX_SPAN=64",))}
-DESIGNS = {"package": "package", "staged": "wait"}  # design -> its build of record
+# design -> (its build of record, whether the frames go in as their sampled
+# rows through ac_copy_rows, as AsciiRenderer.convert_batch sends pinned frames)
+DESIGNS = {"package": ("package", False), "staged": ("wait", False), "rows": ("package", True)}
+ENTRIES = ("ac_resize_nn", "ac_cell_records", "ac_copy_rows")
 
 
 def _write_sources(out: Path, sources: dict) -> None:
@@ -88,14 +96,15 @@ def _write_sources(out: Path, sources: dict) -> None:
 def _build(out: Path, flags: tuple) -> subprocess.Popen:
     cmd = ["g++", "-std=c++20", "-O1", "-fno-strict-aliasing", "-shared", "-fPIC", "-pthread",
            "-DEMU_SPIN_BARRIER", *flags, f"-I{out}", f"-I{TESTS}", "-o",
-           str(out / "lib.so"), str(out / "resize.cpp"), str(out / "cell_records.cpp")]
+           str(out / "lib.so"), *map(str, sorted(out.glob("*.cpp")))]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory) -> dict[str, ctypes.CDLL]:
-    """ac_resize_nn and ac_cell_records built by g++ from each design's
-    sources with the CUDA grid emulated, once per entry of BUILDS."""
+    """ac_resize_nn and ac_cell_records (and the package's ac_copy_rows)
+    built by g++ from each design's sources with the CUDA grid emulated, once
+    per entry of BUILDS."""
     root = tmp_path_factory.mktemp("emu")
     jobs = {}
     for name, (sources, flags) in BUILDS.items():
@@ -108,7 +117,7 @@ def libs(tmp_path_factory) -> dict[str, ctypes.CDLL]:
         text = job.communicate(timeout=600)[0]
         assert job.returncode == 0, text[-4000:]
         lib = ctypes.CDLL(str(root / name / "lib.so"))
-        for entry in ("ac_resize_nn", "ac_cell_records"):
+        for entry in filter(lambda e: hasattr(lib, e), ENTRIES):
             fn = getattr(lib, entry)
             fn.argtypes = kernel_build.ENTRY_POINTS[entry]
             fn.restype = ctypes.c_int
@@ -138,29 +147,43 @@ def _noise(t: torch.Tensor, seed: int) -> torch.Tensor:
     return t
 
 
-def emulated_resize(lib, f: Frames, tables: resize.IndexTables) -> torch.Tensor:
-    b, h, w, _ = f.array.shape
+def emulated_resize(lib, frames: np.ndarray, tables: resize.IndexTables) -> torch.Tensor:
+    b, h, w, _ = frames.shape
     dh, dw = tables.sy.shape[0], tables.sx.shape[0]
     out = _noise(torch.empty((b, dh, dw, 3), dtype=torch.uint8), dh * dw)
-    rc = lib.ac_resize_nn(f.array.ctypes.data, b, h, w, tables.sy.data_ptr(), dh,
+    rc = lib.ac_resize_nn(frames.ctypes.data, b, h, w, tables.sy.data_ptr(), dh,
                           tables.sx.data_ptr(), dw, out.data_ptr(), None)
     assert rc == 0
     return out
 
 
-def emulated_records(lib, f: Frames, tables: cells.CellTables, mode: str,
+def emulated_copy_rows(lib, frames: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """What ops/ingest.copy_rows queues on a card, emulated: frames[:, rows]
+    into a compact batch that starts as noise."""
+    b, _, w, _ = frames.shape
+    layout = ingest.row_layout(torch.from_numpy(frames))
+    assert layout is not None
+    out = _noise(torch.empty((b, len(rows), w, 3), dtype=torch.uint8), len(rows)).numpy()
+    host_rows = np.ascontiguousarray(rows, np.int32)
+    rc = lib.ac_copy_rows(frames.ctypes.data, b, *layout, w * 3, host_rows.ctypes.data,
+                          len(host_rows), out.ctypes.data, None)
+    assert rc == 0
+    return out
+
+
+def emulated_records(lib, frames: np.ndarray, tables: cells.CellTables, mode: str,
                      ramp: torch.Tensor) -> dict[str, torch.Tensor]:
     """What render_cells launches for ``mode``, emulated."""
     family = cells.mode_family(mode)
     if family == cells.FAM_HB_RGB:
-        return {"top": emulated_resize(lib, f, tables.top),
-                "bot": emulated_resize(lib, f, tables.bot)}
-    b, h, w, _ = f.array.shape
+        return {"top": emulated_resize(lib, frames, tables.top),
+                "bot": emulated_resize(lib, frames, tables.bot)}
+    b, h, w, _ = frames.shape
     dh, dw = tables.resize.sy.shape[0], tables.resize.sx.shape[0]
     records = cells.allocate_records(family, b, dh, dw, CPU)
     for i, t in enumerate(records.values()):
         _noise(t, i)
-    rc = lib.ac_cell_records(family, f.array.ctypes.data, b, h, w, tables.resize.sy.data_ptr(),
+    rc = lib.ac_cell_records(family, frames.ctypes.data, b, h, w, tables.resize.sy.data_ptr(),
                              dh, tables.resize.sx.data_ptr(), dw, ramp.data_ptr(),
                              *cells.record_pointers(records), None)
     assert rc == 0
@@ -193,13 +216,24 @@ SHORT_STAGE = {
 }
 
 
-def _check_case(lib, spec: tuple, mode: str) -> None:
+def _check_case(lib, spec: tuple, mode: str, rows: bool = False) -> None:
+    """The emulated records of ``spec`` in ``mode`` against the plain ones;
+    with ``rows``, also against the same build's kernels on the full frames,
+    and the kernels read the sampled rows that ac_copy_rows moved."""
     b, h, w, dh, dw, offset = spec
     f = Frames(b, h, w, seed=h * w + b, offset=offset)
     ramp = cells.ramp_for_palette(pal.DEFAULT_PALETTE)
     tables = cells.cell_tables(h, w, dh, dw, CPU)
-    got = emulated_records(lib, f, tables, mode, ramp)
     want = cells.records_for_mode(pixel.resize_nn(f.tensor, dh, dw), mode, ramp)
+    if rows:
+        sampled, compact = cells.row_tables(h, w, dh, dw, CPU)
+        got = emulated_records(lib, emulated_copy_rows(lib, f.array, sampled), compact, mode, ramp)
+        whole = emulated_records(lib, f.array, tables, mode, ramp)
+        assert list(got) == list(whole)
+        for k in whole:
+            assert torch.equal(got[k], whole[k]), k
+    else:
+        got = emulated_records(lib, f.array, tables, mode, ramp)
     assert list(got) == list(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
@@ -209,7 +243,8 @@ def _check_case(lib, spec: tuple, mode: str) -> None:
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("design", list(DESIGNS))
 def test_emulated_k2_equals_plain(libs, design, case, mode):
-    _check_case(libs[DESIGNS[design]], CASES[case], mode)
+    build, rows = DESIGNS[design]
+    _check_case(libs[build], CASES[case], mode, rows)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -217,7 +252,15 @@ def test_emulated_k2_equals_plain(libs, design, case, mode):
 def test_emulated_k1_equals_plain(libs, design, case):
     b, h, w, dh, dw, offset = CASES[case]
     f = Frames(b, h, w, seed=h + w, offset=offset)
-    got = emulated_resize(libs[DESIGNS[design]], f, resize.resize_tables(h, w, dh, dw, CPU))
+    build, rows = DESIGNS[design]
+    lib = libs[build]
+    if rows:
+        sampled, compact = cells.row_tables(h, w, dh, dw, CPU)
+        got = emulated_resize(lib, emulated_copy_rows(lib, f.array, sampled), compact.resize)
+        assert torch.equal(got, emulated_resize(lib, f.array,
+                                                resize.resize_tables(h, w, dh, dw, CPU)))
+    else:
+        got = emulated_resize(lib, f.array, resize.resize_tables(h, w, dh, dw, CPU))
     assert torch.equal(got, pixel.resize_nn(f.tensor, dh, dw))
 
 
@@ -259,5 +302,5 @@ def test_emulated_staged_opt_in_never_falls(libs):
     f = Frames(1, 8, 8190, seed=8190)
     for dw in (200, 5, 200, 5):
         tables = resize.resize_tables(8, 8190, 8, dw, CPU)
-        got = emulated_resize(libs["wait"], f, tables)
+        got = emulated_resize(libs["wait"], f.array, tables)
         assert torch.equal(got, pixel.resize_nn(f.tensor, 8, dw)), dw

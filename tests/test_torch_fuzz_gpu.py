@@ -9,6 +9,12 @@ against their plain versions on the same card inputs, exactly, with their
 launches counted: sources of 2-159 px, upscales, 3 palettes, 10
 capabilities and ``wants_padding=False``.
 
+Pinned 1080p batches at the benchmark's two geometries go to the card as
+their sampled source rows alone (``ops/ingest.py``) and must give the bytes
+of the same frames already on the card, which skip the ingest; pageable and
+upscaled batches go whole. The counters of ``render.ingest`` say which way
+each call went.
+
 The ``gpu`` tests skip where ``torch.cuda.is_available()`` is false; on
 the card: ``python -m pytest --noconftest tests/test_torch_fuzz_gpu.py -m
 gpu``. The file imports only the port, so it runs where JAX is not
@@ -27,6 +33,7 @@ from asciichat_tpu_torch.render import palette as pal
 from asciichat_tpu_torch.render.pipeline import AsciiRenderer, plan_render
 from asciichat_tpu_torch.render.types import ColorLevel, RenderMode, TerminalCapabilities
 from asciichat_tpu_torch.runtime.device import require_cuda
+from asciichat_tpu_torch.utils import trace
 
 # tests/test_fuzz_render.py's pools
 CAPS_POOL = [
@@ -131,6 +138,71 @@ def test_fuzz_extended_on_the_card(cuda):
     renderers: dict = {}
     for seed in range(9000, 9000 + n):
         check_case(cuda, extended_case(seed), renderers, f"seed={seed}")
+
+
+# The benchmark's cells: 1080p -> 203x64 with the aspect kept, 57 and 114
+# sampled pixel rows of 1,920 x 3 bytes, batches of 128.
+BENCH_CAPS = {"truecolor": (TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.FOREGROUND), 57),
+              "halfblock": (TerminalCapabilities(ColorLevel.TRUECOLOR, RenderMode.HALF_BLOCK), 114)}
+INGEST = ("ingest_row_batches", "ingest_whole_batches", "ingest_rows", "bytes")
+
+
+def ingest_counts(fn) -> dict[str, int]:
+    """What ``fn()`` adds to the ``render.ingest`` counters."""
+    before = trace.PROCESS.counters()
+    fn()
+    after = trace.PROCESS.counters()
+    return {k: after.get(f"render.ingest.{k}", 0) - before.get(f"render.ingest.{k}", 0)
+            for k in INGEST}
+
+
+def pinned_frames(dev: torch.device, n: int, h: int, w: int, seed: int) -> torch.Tensor:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    frames = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8, device=dev, generator=gen)
+    host = torch.empty(frames.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(frames)
+    return host
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", list(BENCH_CAPS))
+def test_pinned_batches_take_the_row_path_on_the_card(cuda, cell):
+    caps, rows = BENCH_CAPS[cell]
+    host = pinned_frames(cuda, 128, 1080, 1920, seed=rows)
+    r = AsciiRenderer(device=cuda)
+    out: list = []
+    counts = ingest_counts(lambda: out.append(r.convert_batch(host, 203, 64, caps)))
+    assert counts == {"ingest_row_batches": 1, "ingest_whole_batches": 0,
+                      "ingest_rows": rows, "bytes": 128 * rows * 1920 * 3}
+    assert counts["bytes"] == {57: 42_024_960, 114: 84_049_920}[rows]
+    on_card = host.to(cuda)
+    counts = ingest_counts(lambda: out.append(r.convert_batch(on_card, 203, 64, caps)))
+    assert counts["ingest_row_batches"] == 0 and counts["ingest_whole_batches"] == 1
+    assert out[0] == out[1]
+    # every other frame of the pinned batch: frames two frames apart
+    counts = ingest_counts(lambda: out.append(r.convert_batch(host[1::2], 203, 64, caps)))
+    assert counts["ingest_row_batches"] == 1
+    assert out[2] == out[1][1::2]
+
+
+@pytest.mark.gpu
+def test_pageable_and_upscaled_batches_go_whole_on_the_card(cuda):
+    caps, _ = BENCH_CAPS["truecolor"]
+    r = AsciiRenderer(device=cuda)
+    pinned = pinned_frames(cuda, 8, 1080, 1920, seed=8)
+    want = r.convert_batch(pinned, 203, 64, caps)
+    out: list = []
+    counts = ingest_counts(lambda: out.append(r.convert_batch(pinned.numpy().copy(), 203, 64,
+                                                              caps)))
+    assert counts == {"ingest_row_batches": 0, "ingest_whole_batches": 1, "ingest_rows": 0,
+                      "bytes": pinned.nbytes}
+    assert out[0] == want
+    small = pinned_frames(cuda, 2, 16, 16, seed=16)
+    counts = ingest_counts(lambda: out.append(r.convert_batch(small, 203, 64, caps)))
+    assert counts["ingest_row_batches"] == 0 and counts["ingest_whole_batches"] == 1
+    frames = small.numpy()
+    assert out[1] == [oracle.ascii_convert_with_capabilities(f, 203, 64, caps) for f in frames]
 
 
 def test_cases_are_the_jax_fuzz_draws(monkeypatch):

@@ -21,7 +21,7 @@ import torch
 from asciichat_tpu.render import palette as pal
 from asciichat_tpu.render.types import ColorLevel, RenderMode, TerminalCapabilities
 from asciichat_tpu_torch.models import server
-from asciichat_tpu_torch.ops import audio, cells, emit, pixel, resize
+from asciichat_tpu_torch.ops import audio, cells, emit, ingest, pixel, resize
 from asciichat_tpu_torch.runtime import kernel_build
 from asciichat_tpu_torch.runtime.device import check_tensor, default_device, require_cuda
 
@@ -443,9 +443,9 @@ def test_kernel_entry_points_are_declared():
         kernel_build.Kernel("x", "ac_missing", "csrc/x.cu", "x.py:1")
     sources = {p.name for p in kernel_build.CSRC_DIR.glob("*.cu")}
     assert sources == {"resize.cu", "cell_records.cu", "render_group.cu", "mixer.cu",
-                       "capture.cu", "emit.cu"}
+                       "capture.cu", "emit.cu", "ingest.cu"}
     for k in (resize.RESIZE_KERNEL, cells.CELL_RECORDS_KERNEL, server.RENDER_GROUP_KERNEL,
-              audio.MIXER_KERNEL, audio.CAPTURE_KERNEL, emit.EMIT_KERNEL):
+              audio.MIXER_KERNEL, audio.CAPTURE_KERNEL, emit.EMIT_KERNEL, ingest.ROW_COPY):
         assert (kernel_build.CSRC_DIR.parent.parent / k.source).is_file()
         text = (kernel_build.CSRC_DIR.parent.parent / k.source).read_text()
         assert f'extern "C" int {k.entry}(' in text

@@ -110,7 +110,7 @@ def test_spans_lie_on_the_profilers_ranges(tmp_path):
     for call, frames_out in enumerate(out):
         ingest = [r for r in recs if r.name == "render.ingest"][call]
         native = [r for r in recs if r.name == "render.emit.native"][call]
-        assert ingest.counts == {"bytes": frames.nbytes}
+        assert ingest.counts == {"bytes": frames.nbytes, "ingest_whole_batches": 1}
         assert native.counts["ansi_bytes"] == sum(map(len, frames_out))
 
 
