@@ -18,7 +18,7 @@ class Run:
     window: Window
     verdict: Verdict
     records_bytes: int  # least bytes one call's records need (harness/yardstick.py)
-    trace: Trace | None  # the traced run's spans and profile; None untraced
+    trace: Trace | None  # the profile and the traced run's spans; None unprofiled
 
     def call_ms(self) -> list[float]:
         return [(end - start) / 1e6 for start, end in self.window.calls]

@@ -1,9 +1,11 @@
 """What a cell is made of, found by name from ``BENCHMARK.json``.
 
-A configuration is the JSON file its entry names; a traffic mix is
-``traffic/<traffic>.json``; a metric is ``metrics/<metric>.py``, whose
-``read(run)`` returns a number or None. A new cell, configuration, traffic
-mix or metric is therefore new files and new entries, never an edit.
+A configuration is the JSON file its entry names; the path its cells drive
+is ``paths/<path>.py``, named by the configuration's ``path`` (``convert_batch``
+where it names none); a traffic mix is ``traffic/<traffic>.json``; a metric
+is ``metrics/<metric>.py``, whose ``read(run)`` returns a number or None. A
+new cell, configuration, path, traffic mix or metric is therefore new files
+and new entries, never an edit.
 """
 
 from __future__ import annotations
@@ -11,10 +13,13 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import sys
 from collections.abc import Callable
 from pathlib import Path
+from types import ModuleType
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
+DEFAULT_PATH = "convert_batch"
 
 
 @dataclasses.dataclass
@@ -51,10 +56,22 @@ def load_cell(root: Path, name: str, traced: bool) -> Cell:
     return Cell(name, entry["chips"], config, traffic, metrics)
 
 
+def _load(kind: str, name: str) -> ModuleType:
+    path = BENCH_DIR / kind / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
 def reader(metric: str) -> Callable[[object], float | None]:
     """``read`` of ``metrics/<metric>.py``."""
-    path = BENCH_DIR / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load("metrics", metric).read
+
+
+def path(config: dict) -> ModuleType:
+    """``paths/<path>.py`` of the configuration's ``path``: the program's
+    set-up, the timed call, its wrappers, reference, judge and yardstick
+    (run.py names what a path module gives)."""
+    return _load("paths", config.get("path", DEFAULT_PATH))

@@ -1,38 +1,38 @@
 """The traced run's spans and device profile.
 
-Spans come from the benchmark's own wrappers around the four calls that
-``AsciiRenderer.convert_batch`` makes (the program is not edited): each
-records its host time and opens a ``torch.profiler`` range of the same name,
-so the profile's device operations can be tied to the call that launched
-them. The profile covers the whole window; its trace is written to a
+Spans come from the benchmark's own wrappers around the calls that a path's
+timed call makes (``paths/<path>.py``, its ``installed``; the program is not
+edited): each records its host time and opens a ``torch.profiler`` range of
+the same name, so the profile's device operations can be tied to the call
+that launched them. The timed call itself is a range named by the path
+(``CALL``). The profile covers the whole window; its trace is written to a
 temporary file under ``TMPDIR``, read back and deleted.
 """
 
 from __future__ import annotations
 
 import bisect
-import contextlib
 import dataclasses
 import json
 import os
+import sys
 import tempfile
 import time
 from collections import defaultdict
 
 import torch
 
-CALL = "convert_batch"
-# The calls inside convert_batch that the traced run wraps, in their order.
-SPANS = ("to_device", "cells_for_plan", "records_to_numpy", "emit_frames")
 PREFIX = "portbench."
 DEVICE_KINDS = {"kernel": "kernel", "gpu_memcpy": "memcpy", "gpu_memset": "memset"}
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 
 class Spans:
-    """Host spans of the wrapped calls: (name, start, end) in perf_counter_ns."""
+    """Host spans of the wrapped calls: (name, start, end) in perf_counter_ns,
+    within timed calls named ``call``."""
 
-    def __init__(self):
+    def __init__(self, call: str):
+        self.call = call
         self.events: list[tuple[str, int, int]] = []
 
     def wrap(self, name: str, fn):
@@ -49,26 +49,7 @@ class Spans:
         return wrapped
 
     def call_scope(self):
-        return torch.profiler.record_function(PREFIX + CALL)
-
-
-@contextlib.contextmanager
-def installed(renderer, spans: Spans):
-    """Wrap the renderer's ``to_device`` and ``cells_for_plan`` (on the
-    instance) and the pipeline's ``cells.records_to_numpy`` and
-    ``emitter.emit_frames`` (on their modules) for the duration."""
-    from asciichat_tpu_torch.ops import cells
-    from asciichat_tpu_torch.render import emitter
-    saved = cells.records_to_numpy, emitter.emit_frames
-    renderer.to_device = spans.wrap("to_device", renderer.to_device)
-    renderer.cells_for_plan = spans.wrap("cells_for_plan", renderer.cells_for_plan)
-    cells.records_to_numpy = spans.wrap("records_to_numpy", cells.records_to_numpy)
-    emitter.emit_frames = spans.wrap("emit_frames", emitter.emit_frames)
-    try:
-        yield
-    finally:
-        cells.records_to_numpy, emitter.emit_frames = saved
-        del renderer.to_device, renderer.cells_for_plan
+        return torch.profiler.record_function(PREFIX + self.call)
 
 
 @dataclasses.dataclass
@@ -100,8 +81,9 @@ class Trace:
     spans: list[tuple[str, int, int]]  # host clock, from Spans
     ops: list[DeviceOp]  # device operations inside the window
     window: tuple[float, float]  # us: first call's start to last call's end
-    calls: Intervals  # the profiler's convert_batch ranges
+    calls: Intervals  # the profiler's ranges of the timed calls
     inner: Intervals  # the profiler's ranges of the wrapped calls
+    call: str = "convert_batch"  # the timed call's name
 
     @property
     def window_s(self) -> float:
@@ -125,9 +107,9 @@ class Trace:
         return sum(b - a for a, b in self.busy_intervals()) / 1e6
 
     def host_activity(self, t: float) -> str:
-        """What the host was doing at ``t``: a wrapped call, the rest of
-        convert_batch, or nothing of the window's calls."""
-        return self.inner.at(t) or ("convert_batch_other" if self.calls.at(t) else "between_calls")
+        """What the host was doing at ``t``: a wrapped call, the rest of the
+        timed call (``<call>_other``), or nothing of the window's calls."""
+        return self.inner.at(t) or (f"{self.call}_other" if self.calls.at(t) else "between_calls")
 
     def idle_by_activity(self) -> dict[str, float]:
         """Seconds of the window with nothing on the device, by host activity
@@ -153,10 +135,12 @@ class Trace:
                 "idle_gaps": top(self.idle_by_activity())}
 
 
-def read_profile(events: list[dict], spans: list[tuple[str, int, int]]) -> Trace:
-    """The Trace of a Chrome trace's ``traceEvents``."""
+def read_profile(events: list[dict], spans: list[tuple[str, int, int]],
+                 call: str = "convert_batch") -> Trace:
+    """The Trace of a Chrome trace's ``traceEvents``, whose timed calls are
+    the ranges named ``call``."""
     launches: dict[int, float] = {}
-    ranges: dict[str, list[tuple[str, float, float]]] = {CALL: [], "inner": []}
+    ranges: dict[str, list[tuple[str, float, float]]] = {call: [], "inner": []}
     raw: list[dict] = []
     for ev in events:
         if ev.get("ph") != "X":
@@ -168,8 +152,8 @@ def read_profile(events: list[dict], spans: list[tuple[str, int, int]]) -> Trace
             launches[ev["args"]["correlation"]] = float(ev["ts"])
         elif cat == "user_annotation" and name.startswith(PREFIX):
             item = (name[len(PREFIX):], float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]))
-            ranges[CALL if item[0] == CALL else "inner"].append(item)
-    calls, inner = Intervals(ranges[CALL]), Intervals(ranges["inner"])
+            ranges[call if item[0] == call else "inner"].append(item)
+    calls, inner = Intervals(ranges[call]), Intervals(ranges["inner"])
     window = ((calls.items[0][1], max(c[2] for c in calls.items)) if calls.items else (0.0, 0.0))
     ops = []
     for ev in raw:
@@ -181,7 +165,7 @@ def read_profile(events: list[dict], spans: list[tuple[str, int, int]]) -> Trace
         span = None if launched is None else inner.at(launched) or calls.at(launched)
         ops.append(DeviceOp(ev["name"], DEVICE_KINDS[ev["cat"]], start, dur,
                             args.get("bytes"), span))
-    return Trace(spans, ops, window, calls, inner)
+    return Trace(spans, ops, window, calls, inner, call)
 
 
 class Profile:
@@ -205,6 +189,8 @@ class Profile:
         os.close(fd)
         try:
             self.prof.export_chrome_trace(path)
+            print(f"portbench: profile written: {os.path.getsize(path)} bytes", file=sys.stderr,
+                  flush=True)
             with open(path) as f:
                 return json.load(f)["traceEvents"]
         finally:

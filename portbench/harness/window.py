@@ -73,15 +73,16 @@ class Window:
 
 
 def run(convert: Callable[[object], Sequence[bytes]], batches: Sequence[object],
-        seconds: float, seed: int, store: SampleStore, sample_frames: int,
+        seconds: float, seed: int, store: SampleStore, sample_frames: int, batch_size: int,
         call_scope: Callable[[], AbstractContextManager] = nullcontext) -> Window:
     """Convert ``batches`` in turn for ``seconds``, sampling ``sample_frames``
     frames of each call in the reservoir, which has as many calls as
-    ``store`` has rows for; ``call_scope`` wraps each call (the traced run
-    names it for the profiler)."""
+    ``store`` has rows for; ``batch_size`` is the frames a call is due to
+    return; ``call_scope`` wraps each call (the traced run names it for the
+    profiler)."""
     rng = random.Random(f"portbench-sample-{seed}")
     sample_calls = store.buf.shape[0] // sample_frames
-    win = Window(len(batches[0]), [], [], [], [], store)
+    win = Window(batch_size, [], [], [], [], store)
     clock = time.perf_counter_ns
     stop = None
     n = 0

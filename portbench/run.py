@@ -3,21 +3,27 @@
     python3 portbench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 from the root of a checkout. The cell, its configuration, its traffic and its
-metrics are found by name from BENCHMARK.json (harness/spec.py). The run:
+metrics are found by name from BENCHMARK.json (harness/spec.py), and so is
+the path its cells drive: ``paths/<path>.py`` of the configuration's
+``path``, ``paths/convert_batch.py`` where it names none. The run:
 
 1. needs as many CUDA cards as the cell asks for, else it exits 2 and prints
    no result;
 2. set-up: sets the process as the configuration states it
-   (harness/process.py), loads asciichat_tpu_torch from this checkout (its
-   kernels build into the checkout's build/ on the first run), makes the
-   frame pool on the card from the seed and pins it in host memory, and makes
-   the traffic's warm-up calls;
-3. the window: one caller converts the pool's batches in a closed loop
-   through ``AsciiRenderer.convert_batch`` for ``--seconds``; with
-   ``--trace 1`` under the benchmark's spans and torch.profiler;
-4. reads the card's peak memory, frees the program's state, converts every
-   pool frame with the plain reference (reference/) and judges the returned
-   frames (harness/check.py);
+   (harness/process.py), then the path's ``Bench(cell, seed, device, mark)``
+   loads asciichat_tpu_torch from this checkout (its kernels build into the
+   checkout's build/ on the first run), makes the traffic's inputs from the
+   seed and makes its warm-up calls;
+3. the window (harness/window.py): one caller makes the path's timed call
+   (``Bench.call``) on ``Bench.states`` in turn, in a closed loop, for
+   ``--seconds``; with ``--trace 1`` under the path's wrappers
+   (``Bench.installed``, harness/tracing.Spans named by the path's ``CALL``)
+   and torch.profiler; with ``--trace 0`` under torch.profiler alone where
+   the cell reports an end-to-end metric of the device trace;
+4. reads the card's peak memory, drops the program's state
+   (``Bench.release``) and has the path judge what the window returned
+   against its plain reference (``Bench.judge``: the verdict and the
+   yardstick's least bytes a call);
 5. prints the compared numbers with their limits as the last lines of
    standard error, and one JSON line as the last line of standard output.
 
@@ -45,9 +51,8 @@ if str(HERE) not in sys.path:
 
 import torch  # noqa: E402
 
-from harness import check, frames, guard, process, spec, tracing, window, yardstick  # noqa: E402
+from harness import guard, process, spec, tracing, window  # noqa: E402
 from harness.record import Run  # noqa: E402
-from reference.render import Reference  # noqa: E402
 
 
 class NoCard(RuntimeError):
@@ -62,18 +67,6 @@ def find_devices(chips: int) -> torch.device:
     if torch.cuda.device_count() < chips:
         raise NoCard(f"the cell needs {chips} cards, torch sees {torch.cuda.device_count()}")
     return torch.device("cuda", torch.cuda.current_device())
-
-
-def load_program():
-    """asciichat_tpu_torch from this checkout, and nowhere else."""
-    if str(ROOT) not in sys.path:
-        sys.path.insert(1, str(ROOT))
-    import asciichat_tpu_torch
-    from asciichat_tpu_torch.render import pipeline, types
-    origin = Path(asciichat_tpu_torch.__file__).absolute()
-    if ROOT not in origin.parents:
-        raise ImportError(f"asciichat_tpu_torch comes from {origin}, not from {ROOT}")
-    return pipeline, types
 
 
 def card_line(device: torch.device) -> str:
@@ -117,55 +110,37 @@ def main(argv=None) -> int:
     except NoCard as e:
         say(f"portbench: {e}")
         return 2
-    conf, traffic = cell.config, cell.traffic
+    conf = cell.config
     for line in process.apply(conf):
         say(f"portbench: set-up: {line}")
-    pipeline, types = load_program()
-    say(f"portbench: set-up: imports and card {time.perf_counter() - START:.3f} s")
+    path = spec.path(conf)
+
+    def mark(what: str) -> None:
+        say(f"portbench: set-up: {what} {time.perf_counter() - START:.3f} s")
 
     # set-up
-    pool = frames.make_pool(traffic, args.seed, device)
-    say(f"portbench: set-up: frame pool made and pinned {time.perf_counter() - START:.3f} s")
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(device)
-    b = traffic["batch"]
-    batches = [pool[i * b:(i + 1) * b] for i in range(traffic["pool_batches"])]
-    renderer = pipeline.AsciiRenderer(palette=conf["palette"], device=device)
-    caps = types.TerminalCapabilities(types.ColorLevel[conf["color_level"]],
-                                      types.RenderMode[conf["render_mode"]],
-                                      wants_padding=conf["padding"])
-    if caps.renderer_key() != conf["mode"]:
-        raise ValueError(f"capabilities select {caps.renderer_key()}, the configuration "
-                         f"states {conf['mode']}")
-
-    def convert(batch):
-        return renderer.convert_batch(batch, conf["width"], conf["height"], caps,
-                                      use_aspect_ratio=conf["keep_aspect"])
-
-    longest = 0
-    for i in range(traffic["warmup_calls"]):
-        longest = max([longest, *map(len, convert(batches[i % len(batches)]))])
-        if i == 0:
-            say(f"portbench: set-up: first call {time.perf_counter() - START:.3f} s")
-    per_call = traffic["sample_frames_per_call"]
-    store = window.SampleStore(traffic["sample_calls"] * per_call, longest * 5 // 4)
-    spans = tracing.Spans()
-    run_args = (convert, batches, args.seconds, args.seed, store, per_call)
+    bench = path.Bench(cell, args.seed, device, mark)
+    spans = tracing.Spans(path.CALL)
+    run_args = (bench.call, bench.states, args.seconds, args.seed, bench.store, bench.per_call,
+                bench.batch_size)
     setup_s = time.perf_counter() - START
 
-    # the window
+    # the window; an untraced run whose cell reports an end-to-end metric of
+    # the device trace profiles it too, without the path's wrappers
+    profiled = traced or any(m["source"] == "device_trace" for m in cell.metrics)
     trace = None
     if traced:
-        with tracing.installed(renderer, spans), tracing.Profile(device) as prof:
+        with bench.installed(spans), tracing.Profile(device) as prof:
+            win = window.run(*run_args, call_scope=spans.call_scope)
+    elif profiled:
+        with tracing.Profile(device) as prof:
             win = window.run(*run_args, call_scope=spans.call_scope)
     else:
         win = window.run(*run_args)
     if jax_loaded():
         return 3
-    if traced:
-        trace = tracing.read_profile(prof.events(), spans.events)
+    if profiled:
+        trace = tracing.read_profile(prof.events(), spans.events, path.CALL)
         del prof
         kernels = [op for op in trace.ops if op.kind == "kernel"]
         say(f"portbench: trace: {len(trace.ops)} device operations, {len(kernels)} kernels, "
@@ -173,22 +148,15 @@ def main(argv=None) -> int:
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     say(card_line(device))
-    del renderer, convert, run_args
+    bench.release()
+    del run_args
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
     # the reference and the check
-    t = time.perf_counter()
-    ref = Reference(conf, traffic["source_h"], traffic["source_w"])
-    host = pool.numpy()
-    expected = [ref.frame(host[i]) for i in range(host.shape[0])]
-    verdict = check.judge(win, expected)
-    say(f"portbench: reference {time.perf_counter() - t:.3f} s for {len(expected)} frames; "
-        f"{len(win.calls)} calls, {win.frames_returned} frames in {win.seconds:.6f} s; "
-        f"{verdict.sampled} frames compared byte for byte")
-
-    run = Run(cell, setup_s, win, verdict, yardstick.records_bytes(ref, b), trace)
+    verdict, least_bytes = bench.judge(win, say)
+    run = Run(cell, setup_s, win, verdict, least_bytes, trace)
     metrics = {}
     for m in cell.metrics:
         value = spec.reader(m["name"])(run)
@@ -201,7 +169,7 @@ def main(argv=None) -> int:
            "count": cell.chips, "memory_peak_bytes": peak}
     result = {"correct": verdict.correct, "attempted": verdict.attempted,
               "failed": verdict.failed, "metrics": metrics, "device": dev}
-    if trace is not None:
+    if traced:
         dev.update(busy_s=trace.busy_s, window_s=trace.window_s)
         result["breakdown"] = trace.breakdown()
     result["checks"] = verdict.checks

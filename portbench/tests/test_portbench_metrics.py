@@ -104,12 +104,26 @@ def test_device_readers():
     assert read("device_idle_pct", run) == pytest.approx(100 * (1 - busy / 20_000))
 
 
+def test_card_readers():
+    run = synthetic_run()
+    busy = 2 * (4_000 + 100 + 50 + 200) / 1e6
+    assert read("card_frames_per_s", run) == pytest.approx(7 / busy)
+    assert read("host_frames_per_s", run) == pytest.approx(7 / 0.020)
+    assert read("card_ingest_gb_per_s", run) == read("ingest_gb_per_s", run)
+    assert read("k2_roofline", run) == read("records_roofline", run)
+    assert read("card_frames_per_s", synthetic_run(traced=False)) is None
+    # a profile with nothing on a device (the CPU) gives no rate, never 0
+    run.trace = tracing.read_profile(
+        [e for e in synthetic_events() if e["cat"] == "user_annotation"], run.trace.spans)
+    assert read("card_frames_per_s", run) is None
+
+
 def test_idle_gaps_are_named_by_what_the_host_did():
     trace = synthetic_run().trace
     idle = trace.idle_by_activity()
     assert sum(idle.values()) == pytest.approx(trace.window_s - trace.busy_s)
     assert max(idle, key=idle.get) == "emit_frames"
-    assert set(idle) <= {*tracing.SPANS, "convert_batch_other", "between_calls"}
+    assert set(idle) <= {*spec.path({}).SPANS, "convert_batch_other", "between_calls"}
     bd = trace.breakdown()
     assert len(bd["device_ops"]) <= 10 and len(bd["idle_gaps"]) <= 10
     assert bd["device_ops"][0][0].startswith("Memcpy HtoD")
@@ -146,3 +160,16 @@ def test_every_metric_of_the_benchmark_has_a_reader_and_applies_somewhere():
     for c in cells:
         assert spec.load_cell(REPO, c, traced=False).metrics
         assert spec.load_cell(REPO, c, traced=True).metrics
+
+
+def test_each_cell_reports_the_metrics_its_per_layer_metrics_move():
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    e2e = {m["name"]: m for m in bench["end_to_end"]}
+    cells = [w["name"] for w in bench["workloads"]]
+    for m in bench["per_layer"]:
+        for c in cells:
+            if spec.applies(m, c, e2e):
+                assert spec.applies(e2e[m["moves"]], c, e2e), (m["name"], c)
+    for c in cells:
+        reported = {m["name"] for m in bench["end_to_end"] if spec.applies(m, c, e2e)}
+        assert "setup_s" in reported and len(reported) >= 2, c
