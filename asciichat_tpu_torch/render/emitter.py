@@ -166,8 +166,9 @@ def emit_frames(
     object per frame costs ~95 us on this host, more than the emission itself;
     the serving path compresses/sends straight from the view instead.
 
-    Spans: ``render.emit.native`` (the native call, counting ``ansi_bytes``)
-    and, with copy=True, ``render.emit.copy`` (one bytes object a frame).
+    Spans: ``render.emit.native`` (the native call, counting ``ansi_bytes``,
+    and ``dithered_cells`` in the Floyd-Steinberg modes) and, with
+    copy=True, ``render.emit.copy`` (one bytes object a frame).
     """
     lib = emitter_lib()
     nthreads = nthreads or _DEFAULT_THREADS
@@ -210,6 +211,8 @@ def emit_frames(
             # than letting the exception terminate/unwind the process
             raise MemoryError("native emitter worker failed (allocation)")
         native.add("ansi_bytes", int(lens.sum()))
+        if mode in ("16color_dithered", "16color_dithered_bg"):
+            native.add("dithered_cells", b * h * w)
     if not copy:
         # zero-copy ndarray views (buffer protocol: zstd/socket/crc consume
         # them directly); valid until this thread's next emit_frames call

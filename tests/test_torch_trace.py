@@ -158,6 +158,25 @@ def test_emit_without_copy_has_no_copy_span(tmp_path):
     assert native.counts["ansi_bytes"] == sum(len(v) for v in views)
 
 
+@pytest.mark.parametrize("mode", ["16color_dithered", "16color_dithered_bg", "truecolor_fg"])
+def test_dithered_cells_count_the_cells_dithered(mode, tmp_path):
+    """The Floyd-Steinberg modes count B*H*W ``dithered_cells`` on their
+    native span; other modes count none."""
+    rng = np.random.default_rng(5)
+    rec = {"rgb": rng.integers(0, 256, (2, 3, 5, 3), dtype=np.uint8),
+           "luma": rng.integers(0, 256, (2, 3, 5), dtype=np.uint8)}
+    key = "render.emit.native.dithered_cells"
+    before = trace.PROCESS.counters().get(key, 0)
+    _, recs, _ = profiled(lambda: emitter.emit_frames(rec, mode), tmp_path / "trace.json")
+    native = next(r for r in recs if r.name == "render.emit.native")
+    if mode == "truecolor_fg":
+        assert "dithered_cells" not in native.counts
+        assert trace.PROCESS.counters().get(key, 0) == before
+    else:
+        assert native.counts["dithered_cells"] == 2 * 3 * 5
+        assert trace.PROCESS.counters()[key] - before == 2 * 3 * 5
+
+
 def test_kernel_build_and_load_spans(monkeypatch, tmp_path):
     """A native library built afresh is one ``kernel.build`` span counting a
     library, and its digest and load are ``kernel.load`` spans."""
